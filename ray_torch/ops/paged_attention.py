@@ -1,0 +1,208 @@
+"""Paged attention for the serving path: the wrapper of the hand-written
+CUDA kernel (``csrc/paged_attention.cu``) and its plain PyTorch version.
+
+Counterpart of ``ray_tpu/ops/paged_attention.py``: same function, same
+layouts. One core computation covers decode (T=1), multi-query
+speculative verify (T=k+1, causal within the span) and chunked prefill
+(B=1, ``limit=true_len``), dispatched through thin wrappers.
+
+Identity contract: greedy tokens through the kernel equal the gather path
+exactly, so the kernel computes the gather path's dense-softmax numerics
+(see the note at the head of the source). Outputs agree with
+:func:`paged_attention_reference` to the last ULPs of the dtype; sums are
+taken in another order.
+
+Dispatch is by the tensor's device, never by a fallback: a CPU tensor
+takes :func:`paged_attention_reference`; a CUDA tensor launches the kernel
+(``launches`` counts each launch) or raises — on a failed build, a shape
+the kernel does not take, or a refused launch.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from ray_torch.models.llama import dense_attention
+from ray_torch.ops import _build
+
+# kernel launches of this process (reset by whoever reads it)
+launches = 0
+
+# launch geometry; csrc/paged_attention.cu holds the same constants
+_KEY_TILE = 64
+_MAX_ROWS = 16
+_MAX_HEAD_DIM = 256
+_SMEM_LIMIT = 231424
+_DTYPES = (torch.float32, torch.bfloat16)
+
+
+def _smem_bytes(rows: int, head_dim: int, score_ld: int) -> int:
+    """Dynamic shared memory of one block: query rows, one K/V tile, the
+    scores, and per-row max / sum / live length (the kernel's carve-up)."""
+    ld = head_dim + 1
+    return 4 * (rows * ld + _KEY_TILE * ld + rows * score_ld + 2 * rows) \
+        + 4 * rows
+
+
+def launch_plan(n_rows: int, head_dim: int, max_len: int) -> tuple[int, bool]:
+    """(query rows per block, keep the scores in shared memory). The most
+    rows (up to 16) whose fp32 scores over the whole table span fit; when
+    not even one row's do, 16 rows that recompute their scores per pass."""
+    rows = min(n_rows, _MAX_ROWS)
+    for r in range(rows, 0, -1):
+        if _smem_bytes(r, head_dim, max_len) <= _SMEM_LIMIT:
+            return r, True
+    return rows, False
+
+
+def check_shapes(head_dim: int, dtype: torch.dtype) -> None:
+    """Raise unless the kernel takes this head_dim and dtype."""
+    if dtype not in _DTYPES:
+        raise ValueError(f"paged attention kernel takes float32 or bfloat16, "
+                         f"got {dtype}")
+    if head_dim % 8 or not 8 <= head_dim <= _MAX_HEAD_DIM:
+        raise ValueError(f"paged attention kernel takes head_dim a multiple "
+                         f"of 8 up to {_MAX_HEAD_DIM}, got {head_dim}")
+
+
+def paged_attention_reference(q, k_pages, v_pages, page_tables, base, limit,
+                              *, sm_scale: float):
+    """Plain PyTorch version: gather each slot's paged view, then the dense
+    masked softmax of the serving path's gather backend."""
+    b, t, h, d = q.shape
+    hkv, _, page, _ = k_pages.shape
+    max_len = page_tables.shape[1] * page
+    pt = page_tables.long()
+    # [Hkv, B, MP, page, D] -> [B, MP, page, Hkv, D] -> [B, L, Hkv, D]
+    k_seq = k_pages[:, pt].permute(1, 2, 3, 0, 4).reshape(b, max_len, hkv, d)
+    v_seq = v_pages[:, pt].permute(1, 2, 3, 0, 4).reshape(b, max_len, hkv, d)
+    col = torch.arange(max_len, device=q.device)
+    pos = base.long()[:, None] + torch.arange(t, device=q.device)[None, :]
+    valid = (col[None, None, :] <= pos[:, :, None]) \
+        & (col[None, None, :] < limit.long()[:, None, None])     # [B,T,L]
+    return dense_attention(q, k_seq, v_seq, h // hkv, sm_scale,
+                           valid[:, None])
+
+
+def _launch(q, k_pages, v_pages, page_tables, base, limit, sm_scale: float):
+    global launches
+    b, t, h, d = q.shape
+    hkv, num_pages, page_size, d_pool = k_pages.shape
+    max_pages = page_tables.shape[1]
+    dev = q.device
+    if dev.type != "cuda":
+        raise ValueError(f"the paged attention kernel runs on a CUDA "
+                         f"device, got {dev}")
+    for name, x in (("k_pages", k_pages), ("v_pages", v_pages),
+                    ("page_tables", page_tables), ("base", base),
+                    ("limit", limit)):
+        if x.device != dev:
+            raise ValueError(f"{name} is on {x.device}, q on {dev}")
+    check_shapes(d, q.dtype)
+    if k_pages.dtype != q.dtype or v_pages.dtype != q.dtype:
+        raise ValueError("q and the K/V pools must share one dtype")
+    if v_pages.shape != k_pages.shape or d_pool != d or h % hkv:
+        raise ValueError(
+            f"shapes q {tuple(q.shape)} / pools {tuple(k_pages.shape)}, "
+            f"{tuple(v_pages.shape)} do not match")
+    if page_tables.shape[0] != b or base.shape != (b,) \
+            or limit.shape != (b,):
+        raise ValueError("page_tables must be [B, max_pages], base and "
+                         "limit [B]")
+    if not (k_pages.is_contiguous() and v_pages.is_contiguous()):
+        raise ValueError("the K/V pools must be contiguous")
+    q = q.contiguous()
+    page_tables = page_tables.to(torch.int32).contiguous()
+    base = base.to(torch.int32).contiguous()
+    limit = limit.to(torch.int32).contiguous()
+    out = torch.empty_like(q)
+    for name, x in (("q", q), ("k_pages", k_pages), ("v_pages", v_pages)):
+        if x.data_ptr() % 16:
+            raise ValueError(f"{name} must be 16-byte aligned")
+    rows, store = launch_plan((h // hkv) * t, d, max_pages * page_size)
+    fn = _kernel_fn()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+                 page_tables.data_ptr(), base.data_ptr(), limit.data_ptr(),
+                 out.data_ptr(), b, t, h, hkv, d, num_pages, page_size,
+                 max_pages, rows, int(store), float(sm_scale),
+                 int(q.dtype == torch.bfloat16), stream)
+    if err != 0:
+        raise RuntimeError(f"paged attention kernel launch failed: CUDA "
+                           f"error {err}")
+    launches += 1
+    return out
+
+
+def _kernel_fn():
+    lib = _build.load("paged_attention")
+    fn = lib.paged_attention_launch
+    if fn.argtypes is None:
+        ptr, i32 = ctypes.c_void_p, ctypes.c_int
+        # 7 pointers; B, T, H, Hkv, D, P, page, max_pages, rows, store;
+        # sm_scale; is_bf16; stream
+        fn.argtypes = [ptr] * 7 + [i32] * 10 + [ctypes.c_float, i32, ptr]
+        fn.restype = i32
+    return fn
+
+
+def paged_attention(q, k_pages, v_pages, page_tables, base, limit=None, *,
+                    sm_scale: float | None = None):
+    """Paged attention over the whole query span.
+
+    q: [B, T, H, D] — query position of q[:, t] is ``base + t`` (causal
+    within the span, full attention over the paged cache below it).
+    k_pages/v_pages: [Hkv, P, page, D] pool. page_tables: [B, max_pages].
+    base: [B] int first-query positions. limit: [B] int exclusive key
+    bound (None = the whole table span) — chunked prefill passes
+    ``true_len`` so padded tail pages stay masked.
+    Returns [B, T, H, D] in q.dtype.
+    """
+    b, t, h, d = q.shape
+    max_len = page_tables.shape[1] * k_pages.shape[2]
+    if sm_scale is None:
+        sm_scale = d ** -0.5
+    if limit is None:
+        limit = torch.full((b,), max_len, dtype=torch.int32, device=q.device)
+    if q.device.type == "cpu":
+        return paged_attention_reference(q, k_pages, v_pages, page_tables,
+                                         base, limit, sm_scale=sm_scale)
+    return _launch(q, k_pages, v_pages, page_tables, base, limit, sm_scale)
+
+
+def paged_decode_attention(q, k_pages, v_pages, page_tables, pos, *,
+                           sm_scale: float | None = None):
+    """Single-token decode attention: q [B, H, D], new token at position
+    ``pos[b]`` (attends 0..pos inclusive — its own k/v is already written
+    to the pool). Returns [B, H, D]."""
+    return paged_attention(q[:, None], k_pages, v_pages, page_tables, pos,
+                           sm_scale=sm_scale)[:, 0]
+
+
+def paged_verify_attention(q, k_pages, v_pages, page_tables, seq_lens, *,
+                           sm_scale: float | None = None):
+    """Multi-query speculative verify: q [B, T, H, D], T = k+1 draft span
+    per slot, q[b, t] at position ``seq_lens[b] + t``. Returns
+    [B, T, H, D]."""
+    return paged_attention(q, k_pages, v_pages, page_tables, seq_lens,
+                           sm_scale=sm_scale)
+
+
+def _scalar(x, device) -> torch.Tensor:
+    if isinstance(x, torch.Tensor):
+        return x.reshape(1).to(device=device, dtype=torch.int32)
+    return torch.full((1,), int(x), dtype=torch.int32, device=device)
+
+
+def paged_chunk_attention(q, k_pages, v_pages, page_table, start, true_len,
+                          *, sm_scale: float | None = None):
+    """Chunked-prefill attention for ONE slot: q [1, C, H, D] chunk whose
+    first token sits at position ``start``; keys are the slot's whole
+    paged view (earlier chunks + this one, pre-written) bounded by
+    ``true_len``. Returns [1, C, H, D]."""
+    return paged_attention(q, k_pages, v_pages, page_table[None],
+                           _scalar(start, q.device),
+                           _scalar(true_len, q.device), sm_scale=sm_scale)

@@ -1,0 +1,858 @@
+"""Continuous-batching LLM engine: the PyTorch counterpart of
+``ray_tpu/serve/llm/engine.py``, with the same public API and the same
+``engine_stats()`` key names for what it supports.
+
+Requests enter a waiting queue; the engine loop admits them into fixed
+decode slots (prefill — full, or chunked when the prompt is long or a
+cached prefix was matched), then repeatedly dispatches decode blocks of
+1..K steps across all active slots and streams sampled tokens out per
+request.
+
+How the reference's JAX machinery maps onto PyTorch:
+- the jitted, donated programs are plain functions that update the KV pool
+  and the device-resident slot state IN PLACE (where JAX donated the
+  buffers and received new ones);
+- a multi-step decode block is a loop of K steps dispatched back to back
+  on the current CUDA stream — each step's input tokens are the previous
+  step's on-device samples, so the host never waits between them;
+- the host harvests sampled tokens ``pipeline_depth`` blocks behind: each
+  block's tokens start a ``non_blocking`` copy into pinned host memory at
+  dispatch time and record a CUDA event; ``event.query()`` is the
+  readiness probe (``is_ready`` in the reference) and ``synchronize()``
+  the blocking harvest;
+- the slot state keeps a PERMANENT TRASH ROW (row ``max_batch_size``):
+  packed decode widths pad their index vector with it, so padding lanes
+  write only into the trash page; slot patches are applied at one fixed
+  shape (B+1 rows, trash-row padded).
+
+This slice leaves out, for later slices: the KV tier (spill, restore, warm
+start), disaggregation, failover continuations, speculative decoding,
+tensor parallelism, the flight-recorder / tracing / attribution / deadline
+hooks, and CUDA graphs. A config that switches one of them on raises.
+
+Threading model: one loop thread drives the device. ``submit()`` /
+``drain()`` / ``result()`` / ``cancel()`` are thread-safe.
+"""
+
+from __future__ import annotations
+
+import logging
+import threading
+import time
+import uuid
+from dataclasses import dataclass, field
+from typing import Optional
+
+import numpy as np
+import torch
+
+from ray_torch._device import resolve_device
+from ray_torch.models import llama
+from ray_torch.observability import profiling as profiling_mod
+from ray_torch.ops import _build
+from ray_torch.serve.llm import kv_cache as kvc
+from ray_torch.serve.llm.config import LLMConfig
+from ray_torch.serve.llm.tokenizer import get_tokenizer
+
+logger = logging.getLogger(__name__)
+
+# LLMConfig switches of features this slice does not carry: (field, the
+# only accepted value)
+_NOT_PORTED = (("spec_decode_enabled", False), ("kv_tier_enabled", False),
+               ("tp_degree", 1), ("disagg_prompt_threshold", 0),
+               ("disagg_prefill_deployment", None))
+
+
+@dataclass
+class _Request:
+    request_id: str
+    prompt_tokens: list[int]
+    max_tokens: int
+    temperature: float
+    top_k: int
+    stop_token: Optional[int]
+    # state
+    slot: int = -1
+    pages: list[int] = field(default_factory=list)
+    generated: list[int] = field(default_factory=list)
+    dispatched: int = 0  # tokens whose computation has been dispatched
+    prefill_pos: int = 0  # prompt tokens already prefilled (chunked prefill)
+    # prompt tokens served from the prefix cache (shared pages; prefill_pos
+    # starts here so only the suffix is computed)
+    cached_tokens: int = 0
+    # cancelled while mid chunked prefill: the loop frees slot+pages
+    # promptly via _abort_prefilling instead of finishing the prompt pass
+    prefill_cancelled: bool = False
+    # cancelled by the client: completion also reaps the tracking entry
+    abandoned: bool = False
+    drained_upto: int = 0
+    done: bool = False
+    error: Optional[str] = None
+    submitted_at: float = field(default_factory=time.monotonic)
+    admitted_at: Optional[float] = None
+    first_token_at: Optional[float] = None
+    # host record-time of the last token plus the per-token gaps
+    last_token_at: Optional[float] = None
+    itl_gaps: list[float] = field(default_factory=list)
+    finished_at: Optional[float] = None
+    done_event: threading.Event = field(default_factory=threading.Event)
+
+
+class _Fetch:
+    """Device -> host copy of sampled tokens, started at dispatch time so
+    the later harvest finds the bytes already in host memory: a
+    ``non_blocking`` copy into a pinned tensor plus a CUDA event recorded
+    behind it on the same stream. On the CPU the tensor is already host
+    memory."""
+
+    def __init__(self, dev: torch.Tensor):
+        if dev.device.type == "cuda":
+            self.host = torch.empty(dev.shape, dtype=dev.dtype,
+                                    pin_memory=True)
+            self.host.copy_(dev, non_blocking=True)
+            self.event = torch.cuda.Event()
+            self.event.record(torch.cuda.current_stream(dev.device))
+        else:
+            self.host = dev
+            self.event = None
+
+    def ready(self) -> bool:
+        return self.event is None or self.event.query()
+
+    def wait(self) -> np.ndarray:
+        if self.event is not None:
+            self.event.synchronize()
+        return self.host.numpy()
+
+
+class LLMEngine:
+    def __init__(self, cfg: LLMConfig, params=None, rng_seed: int = 0):
+        for name, only in _NOT_PORTED:
+            if getattr(cfg, name) != only:
+                raise NotImplementedError(
+                    f"LLMConfig.{name}={getattr(cfg, name)!r}: not ported "
+                    f"to ray_torch yet (only {only!r} is accepted)")
+        self.cfg = cfg
+        self.device = resolve_device(cfg.device)
+        self.model_cfg = cfg.llama()
+        self.tokenizer = get_tokenizer(cfg.tokenizer)
+        # Paged-attention backend, resolved ONCE; an explicit kernel on
+        # the CPU or a shape the kernel does not take raises here
+        self._attn_backend = kvc.resolve_attention_backend(
+            cfg.attention_kernel, self.model_cfg, self.device)
+        if self._attn_backend == "cuda":
+            # build (or load) the kernel library now: a failed build fails
+            # the engine's construction, not a request mid-traffic
+            _build.load("paged_attention")
+
+        if params is None:
+            if cfg.checkpoint_path:
+                params = llama.load_params(cfg.checkpoint_path,
+                                           self.model_cfg, self.device)
+            else:
+                gen = torch.Generator(device=self.device)
+                gen.manual_seed(rng_seed)
+                params = llama.init_params(self.model_cfg, gen, self.device)
+        self.params = params  # nested dict of tensors on self.device
+
+        b = cfg.max_batch_size
+        self.max_pages_per_seq = -(-cfg.max_seq_len // cfg.page_size)
+        self.kv = kvc.init_paged_cache(
+            self.model_cfg, cfg.num_pages, cfg.page_size, self.device)
+        self._prof = profiling_mod.EngineProfiler(
+            enabled=bool(cfg.profiling_enabled))
+        self._prof.set_memory_layout(
+            profiling_mod.tree_bytes(self.params),
+            profiling_mod.tree_bytes(self.kv))
+        # Prefix caching (kv_cache.PageAllocator): host-side bookkeeping
+        # between steps — shared pages change WHICH pool pages a slot
+        # reads, never the step functions or their shapes.
+        self._prefix_cache_on = bool(cfg.prefix_cache_enabled)
+        self.allocator = kvc.PageAllocator(
+            cfg.num_pages, cache_pages=cfg.prefix_cache_max_pages)
+        self.page_tables = np.zeros((b, self.max_pages_per_seq), np.int32)
+        self.seq_lens = np.zeros((b,), np.int32)
+        self.slot_req: list[Optional[_Request]] = [None] * b
+        self.free_slots = list(range(b))
+
+        self._lock = threading.Lock()
+        self._waiting: list[_Request] = []
+        # chunked prefill: admitted (slot+pages held) but prompt not fully
+        # prefilled; the loop dispatches one chunk per request per
+        # iteration, interleaved with decode blocks
+        self._prefilling: list[_Request] = []
+        self._requests: dict[str, _Request] = {}
+        self._wake = threading.Event()
+        self._stop = threading.Event()
+        self._gen = torch.Generator(device=self.device)
+        self._gen.manual_seed(rng_seed + 1)
+        self._loop_thread: Optional[threading.Thread] = None
+        self.stats = {"steps": 0, "prefills": 0, "tokens_out": 0,
+                      "requests": 0, "compile_s": 0.0,
+                      "prefix_hits": 0, "prefix_misses": 0,
+                      "prefix_hit_tokens": 0,
+                      # decode blocks / prefill chunks dispatched, each
+                      # running the resolved attention backend per layer
+                      "attn_decode_dispatches": 0,
+                      "attn_chunk_dispatches": 0}
+        self._last_block = 0
+        # Pipelined decode: the host harvests sampled tokens PIPELINE_DEPTH
+        # blocks behind the device
+        self.PIPELINE_DEPTH = cfg.pipeline_depth
+        self._pending: list = []   # [(_Fetch, [(col, slot, req)], k)]
+        self._overrides: dict[int, object] = {}  # slot -> first token
+        # Device-resident decode state. Row b (one past the last slot) is
+        # a PERMANENT TRASH ROW: packed dispatch pads its slot index vector
+        # with it, so padding lanes write into the trash page (page-table
+        # row of zeros) instead of any live slot's KV.
+        dev = self.device
+        self._pt_dev = torch.zeros((b + 1, self.max_pages_per_seq),
+                                   dtype=torch.int32, device=dev)
+        self._sl_dev = torch.zeros((b + 1,), dtype=torch.int32, device=dev)
+        self._temps_dev = torch.zeros((b + 1,), dtype=torch.float32,
+                                      device=dev)
+        self._dev_tokens = torch.zeros((b + 1,), dtype=torch.long,
+                                       device=dev)
+        self._zero_tok = torch.zeros((), dtype=torch.long, device=dev)
+        self._dirty_slots: dict[int, tuple] = {}  # slot -> (seq_len, temp)
+
+    # ---- device programs -------------------------------------------------
+    def _decode_block(self, idx: torch.Tensor, num_steps: int):
+        """``num_steps`` decode steps at the PACKED width ``len(idx)``,
+        dispatched back to back. ``idx`` selects the active slots (padded
+        with the trash row); the gather / scatter of the [W]-sized state
+        stays on the device. Updates the KV pool and slot state in place and
+        returns all sampled tokens [K, W]."""
+        pt = self._pt_dev[idx]
+        lens = self._sl_dev[idx]
+        toks = self._dev_tokens[idx]
+        temps = self._temps_dev[idx]
+        outs = []
+        for _ in range(num_steps):
+            logits, lens = kvc.paged_decode_step(
+                self.params, self.kv, pt, lens, toks, self.model_cfg,
+                self.cfg.page_size, self._attn_backend)
+            toks = kvc.sample_tokens(logits, self._gen, temps,
+                                     self.cfg.top_k)
+            outs.append(toks)
+        # padding lanes must not accumulate garbage into the trash row
+        # (its seq_len would creep toward int32 overflow on a long-lived
+        # engine): pin it back to zero on scatter
+        trash = self.cfg.max_batch_size
+        self._sl_dev[idx] = torch.where(idx == trash, 0, lens)
+        self._dev_tokens[idx] = toks
+        return torch.stack(outs)
+
+    def _first_token(self, logits, temperature: float):
+        """Sample a prompt pass's first token on the device (no host
+        sync; the harvest pipeline records it). top_k is the ENGINE's."""
+        temp = torch.full((1,), temperature, dtype=torch.float32,
+                          device=self.device)
+        return kvc.sample_tokens(logits[None, :], self._gen, temp,
+                                 self.cfg.top_k)[0]
+
+    def _to_device(self, arr: np.ndarray) -> torch.Tensor:
+        return torch.from_numpy(arr).to(self.device)
+
+    # ---- public API ------------------------------------------------------
+    def start(self):
+        if self._loop_thread is None:
+            if self.cfg.warmup_compile:
+                self._warmup_decode_programs()
+            self._loop_thread = threading.Thread(
+                target=self._loop, name="llm-engine", daemon=True)
+            self._loop_thread.start()
+
+    @torch.no_grad()
+    def _warmup_decode_programs(self):
+        """Run every (bucket width, block length) decode signature once
+        before serving, so first-use costs (kernel library load, cuBLAS
+        heuristics, allocator growth) are paid before traffic. All-trash
+        index vectors make the warmup write only into the trash page."""
+        trash = self.cfg.max_batch_size
+        widths = sorted({self._bucket_width(n)
+                         for n in range(1, self.cfg.max_batch_size + 1)})
+        tiers = {1, max(1, min(self.cfg.pressure_decode_block,
+                               self.cfg.decode_block)),
+                 self.cfg.decode_block}
+        for w in widths:
+            idx = torch.full((w,), trash, dtype=torch.long,
+                             device=self.device)
+            for k in sorted(tiers):
+                with self._prof.compile_scope("decode", ("decode", w, k)):
+                    self._decode_block(idx, k)
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    def shutdown(self):
+        self._stop.set()
+        self._wake.set()
+        loop_alive = False
+        if self._loop_thread is not None:
+            self._loop_thread.join(timeout=10.0)
+            loop_alive = self._loop_thread.is_alive()
+            self._loop_thread = None
+        # surface already-computed completions: the loop may exit with
+        # dispatched blocks still unharvested, and their waiters would
+        # otherwise time out on results that exist. Skip if the loop
+        # thread is wedged past the join timeout — draining concurrently
+        # with it would race on _pending.
+        if loop_alive:
+            return
+        while self._pending:
+            self._harvest_one()
+
+    def submit(self, prompt: str | list[int], *,
+               max_tokens: Optional[int] = None,
+               temperature: Optional[float] = None,
+               top_k: Optional[int] = None,
+               request_id: Optional[str] = None) -> str:
+        """Enqueue a request; returns its id. Tokens stream via drain()."""
+        if isinstance(prompt, str):
+            toks = self.tokenizer.encode(prompt)
+        else:
+            toks = list(prompt)
+        toks = toks[: self.cfg.max_prompt_len]
+        req = _Request(
+            request_id=request_id or uuid.uuid4().hex[:16],
+            prompt_tokens=toks,
+            max_tokens=max(1, min(max_tokens or self.cfg.max_tokens,
+                                  self.cfg.max_seq_len - len(toks))),
+            temperature=(self.cfg.temperature if temperature is None
+                         else temperature),
+            top_k=self.cfg.top_k if top_k is None else top_k,
+            stop_token=getattr(self.tokenizer, "eos_token_id", None))
+        if req.top_k != self.cfg.top_k:
+            # all sampling uses the ENGINE's top_k, as in the reference
+            logger.warning(
+                "request top_k=%s differs from engine top_k=%s; sampling "
+                "uses the engine setting", req.top_k, self.cfg.top_k)
+        with self._lock:
+            self._requests[req.request_id] = req
+            self._waiting.append(req)
+            self.stats["requests"] += 1
+        self._wake.set()
+        return req.request_id
+
+    def cancel(self, request_id: str) -> None:
+        """Abandon a request (client disconnected mid-stream): a waiting
+        request is dropped immediately; a slotted one finishes at its next
+        recorded token (the loop then frees its slot/pages on the normal
+        completion path)."""
+        with self._lock:
+            req = self._requests.pop(request_id, None)
+            if req is None:
+                return
+            if req in self._waiting:
+                self._waiting.remove(req)
+                req.done = True
+                req.finished_at = time.monotonic()
+                req.done_event.set()
+                return
+            if req in self._prefilling:
+                # mid chunked prefill: flag it and let the LOOP free the
+                # slot/pages (_abort_prefilling) — the loop may be
+                # building a chunk dispatch from req.pages right now
+                req.prefill_cancelled = True
+                req.abandoned = True
+                self._requests[request_id] = req  # loop reaps on abort
+                self._wake.set()
+                return
+            if not req.done:
+                req.max_tokens = max(1, len(req.generated))
+                req.abandoned = True
+                self._requests[request_id] = req
+                req.drained_upto = len(req.generated)
+        self._wake.set()
+
+    def drain(self, request_id: str) -> dict:
+        """New tokens since the last drain + done flag (streaming poll)."""
+        with self._lock:
+            req = self._requests.get(request_id)
+            if req is None:
+                return {"tokens": [], "text": "", "done": True,
+                        "error": "unknown request"}
+            new = req.generated[req.drained_upto:]
+            req.drained_upto = len(req.generated)
+            done = req.done
+            err = req.error
+            if done and req.drained_upto >= len(req.generated):
+                self._requests.pop(request_id, None)
+        out = {"tokens": new, "text": self.tokenizer.decode(new),
+               "done": done, "error": err}
+        if done:
+            out.update(self._request_meta(req))
+        return out
+
+    def result(self, request_id: str, timeout: Optional[float] = None) -> dict:
+        """Block until the request completes; returns the full completion.
+        On timeout (default 120 s) the request is CANCELLED."""
+        if timeout is None:
+            timeout = 120.0
+        with self._lock:
+            req = self._requests.get(request_id)
+        if req is None:
+            return {"text": "", "tokens": [], "error": "unknown request"}
+        if not req.done_event.wait(timeout):
+            self.cancel(request_id)
+            return {"text": "", "tokens": [], "error": "timeout"}
+        with self._lock:
+            self._requests.pop(request_id, None)
+        ttft = (req.first_token_at - req.submitted_at
+                if req.first_token_at else None)
+        gaps = sorted(req.itl_gaps)
+        out = {
+            "text": self.tokenizer.decode(req.generated),
+            "tokens": list(req.generated),
+            "num_prompt_tokens": len(req.prompt_tokens),
+            "num_generated_tokens": len(req.generated),
+            "error": req.error,
+            "ttft_s": ttft,
+            # median inter-token gap at host record time (bursty under
+            # pipelined harvests)
+            "itl_s": gaps[len(gaps) // 2] if gaps else None,
+            "latency_s": (req.finished_at or time.monotonic())
+            - req.submitted_at,
+        }
+        out.update(self._request_meta(req))
+        return out
+
+    @staticmethod
+    def _request_meta(req: _Request) -> dict:
+        return {"request_id": req.request_id,
+                "queue_wait_s": ((req.admitted_at - req.submitted_at)
+                                 if req.admitted_at is not None else None)}
+
+    def generate(self, prompt: str, **kw) -> dict:
+        """Convenience: submit + wait."""
+        rid = self.submit(prompt, **kw)
+        return self.result(rid)
+
+    def engine_stats(self) -> dict:
+        with self._lock:
+            active = sum(1 for r in self.slot_req if r is not None)
+            waiting = len(self._waiting)
+            prefilling = len(self._prefilling)
+        free = self.allocator.available()
+        out = {**self.stats, "active_slots": active,
+               "waiting": waiting + prefilling,
+               "prefilling": prefilling,
+               "free_pages": free,
+               "decode_block_effective": self._last_block,
+               "pending_pipeline_depth": len(self._pending)}
+        out.update(self._prof.phase_stats())
+        out["compile_events"] = self._prof.compile_events
+        out["mid_traffic_compiles"] = self._prof.mid_traffic_compiles
+        out["compile_s"] = round(self._prof.compile_s, 3)
+        # paged-attention backend surface: which kernel this replica runs
+        # (string + a numeric twin exporters can gauge) and how many
+        # attention-bearing signatures have been dispatched so far
+        out["attention_backend"] = self._attn_backend
+        out["attn_backend_cuda"] = int(self._attn_backend == "cuda")
+        out["attn_kernel_compiles"] = self._prof.compile_count(
+            ("decode", "chunk"))
+        out["tp_degree"] = 1
+        out.update(self._prof.memory_stats(
+            self.device, used_pages=self.cfg.num_pages - free,
+            total_pages=self.cfg.num_pages))
+        if self._prefix_cache_on:
+            cs = self.allocator.cache_stats()
+            out.update({"prefix_cached_pages": cs["cached_pages"],
+                        "prefix_evictable_pages": cs["evictable_pages"],
+                        "prefix_shared_pages": cs["shared_pages"],
+                        "prefix_evictions": cs["evicted"],
+                        "prefix_hit_pages": cs["hit_pages"],
+                        "prefix_inserted_pages": cs["inserted"]})
+        return out
+
+    # ---- engine loop -----------------------------------------------------
+    def _loop(self):
+        if self.device.type == "cuda":
+            torch.cuda.set_device(self.device)
+        try:
+            with torch.no_grad():
+                self._run_loop()
+        except BaseException as exc:
+            # the device path failed (a kernel launch, an out-of-memory):
+            # fail every outstanding request with the error instead of
+            # letting them hang to their timeouts, then stop
+            logger.exception("engine loop failed; failing all requests")
+            self._fail_all(f"engine loop failed: {exc!r}")
+            raise
+
+    def _run_loop(self):
+        prof = self._prof
+        while not self._stop.is_set():
+            if prof.enabled:
+                t0 = time.perf_counter()
+                if self._admit():
+                    prof.record("admit", time.perf_counter() - t0)
+            else:
+                self._admit()
+            chunks = self._prefill_chunks()
+            # chunk dispatches count as progress: an otherwise-idle engine
+            # mid-chunked-prefill must not sleep between chunks
+            dispatched = self._decode_step() or chunks > 0
+            # Eager harvest: pop every block whose tokens already landed
+            # in host memory; the blocking PIPELINE_DEPTH trim in
+            # _decode_step still bounds the queue when results are slow
+            while self._pending and self._pending[0][0].ready():
+                self._harvest_one()
+            if not dispatched:
+                if self._pending:
+                    self._harvest_one()  # drain the pipeline tail
+                    continue
+                self._wake.wait(timeout=0.05)
+                self._wake.clear()
+
+    def _fail_all(self, error: str) -> None:
+        with self._lock:
+            reqs = [r for r in self._requests.values() if not r.done]
+            for req in reqs:
+                req.error = error
+                req.done = True
+                req.finished_at = time.monotonic()
+        for req in reqs:
+            req.done_event.set()
+
+    def _bucket(self, n: int) -> int:
+        b = 16
+        while b < n:
+            b *= 2
+        return min(b, self.cfg.max_prompt_len)
+
+    def _admissions_blocked(self) -> bool:
+        """Requests waiting while slots are free (= page-pool starved), or
+        a chunked prefill mid-flight: shrink decode blocks so page
+        reclamation isn't a whole block late and prefill chunks interleave
+        tightly. Lock held."""
+        return (bool(self._waiting) and bool(self.free_slots)) \
+            or bool(self._prefilling)
+
+    def _bucket_width(self, n: int) -> int:
+        """Packed decode width: smallest power-of-two >= n (floor 4),
+        capped at max_batch_size."""
+        w = 4
+        while w < n:
+            w *= 2
+        return min(w, self.cfg.max_batch_size)
+
+    def _admit(self) -> int:
+        """Move waiting requests into free slots (prefill each)."""
+        admitted = 0
+        while True:
+            with self._lock:
+                if not self._waiting or not self.free_slots:
+                    return admitted
+                req = self._waiting[0]
+                # cache-aware admission: longest indexed full-page prefix
+                # (increffed — shared pages go into this slot's page table
+                # and only the suffix gets prefilled)
+                matched: list[int] = []
+                if self._prefix_cache_on:
+                    matched = self.allocator.match_prefix(
+                        req.prompt_tokens, self.cfg.page_size)
+                n_pages = -(-max(len(req.prompt_tokens) + req.max_tokens, 1)
+                            // self.cfg.page_size)
+                n_pages = min(n_pages, self.max_pages_per_seq)
+                pages = self.allocator.alloc(n_pages - len(matched))
+                if pages is None:
+                    # page pool exhausted; drop the match refs (pages park
+                    # back in the cached LRU, still matchable) + retry
+                    if matched:
+                        self.allocator.free(matched)
+                    return admitted
+                self._waiting.pop(0)
+                slot = self.free_slots.pop()
+                req.slot = slot
+                req.admitted_at = time.monotonic()
+                req.pages = matched + pages
+                req.cached_tokens = len(matched) * self.cfg.page_size
+                req.prefill_pos = req.cached_tokens
+                if self._prefix_cache_on \
+                        and len(req.prompt_tokens) > self.cfg.page_size:
+                    key = "prefix_hits" if matched else "prefix_misses"
+                    self.stats[key] += 1
+                    self.stats["prefix_hit_tokens"] += req.cached_tokens
+            self._prof.record("queue_wait",
+                              req.admitted_at - req.submitted_at)
+            self._route_admitted(req)
+            admitted += 1
+
+    def _route_admitted(self, req: _Request) -> None:
+        """Send an admitted request to its prompt pass."""
+        suffix = len(req.prompt_tokens) - req.prefill_pos
+        if req.prefill_pos > 0 or (self.cfg.prefill_chunk > 0
+                                   and suffix > self.cfg.prefill_chunk):
+            # long prompt OR cached prefix: prefill the (remaining)
+            # suffix in chunks interleaved with decode blocks. A cached
+            # prefix MUST go through the chunk pass — paged_prefill
+            # writes from position 0 and would scribble on the shared
+            # pages; the chunk pass starts at prefill_pos and reads the
+            # cached prefix back through the page table.
+            with self._lock:
+                self._prefilling.append(req)
+        else:
+            self._prefill(req)
+
+    def _prefill(self, req: _Request):
+        """Dispatch the prompt pass WITHOUT waiting for it: the sampled first
+        token stays on the device (fed to the next decode block as an
+        override) and is recorded on the host by the harvest pipeline."""
+        plen = len(req.prompt_tokens)
+        bucket = self._bucket(plen)
+        toks = np.zeros((1, bucket), np.int64)
+        toks[0, :plen] = req.prompt_tokens
+        table = np.zeros((self.max_pages_per_seq,), np.int32)
+        table[: len(req.pages)] = req.pages
+        with self._prof.phase("prefill"), self._prof.compile_scope(
+                "prefill", ("prefill", bucket),
+                mid_traffic=self.stats["requests"] > 0):
+            logits = kvc.paged_prefill(
+                self.params, self.kv, self._to_device(table),
+                self._to_device(toks), plen, self.model_cfg,
+                self.cfg.page_size)
+            tok_dev = self._first_token(logits, req.temperature)
+        self._arm_slot(req, table, tok_dev, plen)
+
+    def _arm_slot(self, req: _Request, table, tok_dev, plen: int) -> None:
+        """Publish a freshly prefilled slot to the decode loop: host/device
+        state patch, first-token override, and a harvest entry for the
+        sampled first token."""
+        fetch = _Fetch(tok_dev)
+        with self._lock:
+            req.dispatched = 1
+            self.page_tables[req.slot] = table
+            self.seq_lens[req.slot] = plen
+            self.slot_req[req.slot] = req
+            self._dirty_slots[req.slot] = (plen, req.temperature)
+            self._overrides[req.slot] = tok_dev
+            self._pending.append((fetch, [(0, req.slot, req)], 1))
+        if self._prefix_cache_on:
+            # Index the prompt's FULL pages now (not at completion): the
+            # writes are merely dispatched, but any matcher's reads are dispatched
+            # later on the same ordered stream, so a concurrent
+            # same-prefix admission can already share. Partial trailing
+            # pages are never indexed, and decode writes land at positions
+            # >= plen, so a shared page is never written after insertion.
+            self.allocator.insert_prefix(
+                req.prompt_tokens, req.pages, self.cfg.page_size)
+        self.stats["prefills"] += 1
+
+    def _prefill_chunks(self) -> int:
+        """Dispatch ONE prefill chunk per in-progress chunked admission (loop
+        thread). The final chunk's on-device sampled token arms the slot
+        exactly like _prefill's; intermediate chunks only extend the
+        cached KV."""
+        with self._lock:
+            active = list(self._prefilling)
+        for req in active:
+            if req.prefill_cancelled:
+                self._abort_prefilling(req)
+                continue
+            plen = len(req.prompt_tokens)
+            start = req.prefill_pos
+            remaining = plen - start
+            # prefill_chunk 0 disables chunking, but a cached-prefix
+            # admission still rides this path (suffix-only prefill): the
+            # whole suffix then goes as one chunk
+            chunk = (self.cfg.prefill_chunk if self.cfg.prefill_chunk > 0
+                     else remaining)
+            final = remaining <= chunk
+            clen = self._bucket(remaining) if final else chunk
+            toks = np.zeros((1, clen), np.int64)
+            seg = req.prompt_tokens[start: start + clen]
+            toks[0, : len(seg)] = seg
+            table = np.zeros((self.max_pages_per_seq,), np.int32)
+            table[: len(req.pages)] = req.pages
+            with self._prof.phase("chunk_prefill"), self._prof.compile_scope(
+                    "chunk", ("chunk", clen),
+                    mid_traffic=self.stats["requests"] > 0):
+                logits = kvc.paged_prefill_chunk(
+                    self.params, self.kv, self._to_device(table),
+                    self._to_device(toks), start, plen, self.model_cfg,
+                    self.cfg.page_size, self._attn_backend)
+                tok_dev = self._first_token(logits, req.temperature)
+            self.stats["attn_chunk_dispatches"] += 1
+            req.prefill_pos = min(start + clen, plen)
+            if req.prefill_pos >= plen:
+                with self._lock:
+                    self._prefilling.remove(req)
+                self._arm_slot(req, table, tok_dev, plen)
+        return len(active)
+
+    def _abort_prefilling(self, req: _Request) -> None:
+        """Release a cancelled mid-chunked-prefill request NOW: slot, pages
+        and tracking. Loop thread only: dispatched chunks may still write these
+        pages, but the stream is ordered, so any later prefill reusing them
+        runs after."""
+        with self._lock:
+            if req in self._prefilling:
+                self._prefilling.remove(req)
+            if req.slot >= 0:
+                self.free_slots.append(req.slot)
+                req.slot = -1
+            req.done = True
+            req.finished_at = time.monotonic()
+            self._requests.pop(req.request_id, None)
+        self.allocator.free(req.pages)
+        req.pages = []
+        req.done_event.set()
+
+    def _record_token(self, req: _Request, tok: int) -> None:
+        """Append a sampled token; mark done on stop/max. Lock held."""
+        if req.done:
+            return
+        now = time.monotonic()
+        if req.first_token_at is None:
+            req.first_token_at = now
+        elif req.last_token_at is not None:
+            gap = now - req.last_token_at
+            req.itl_gaps.append(gap)
+            self._prof.record_itl(gap)
+        req.last_token_at = now
+        req.generated.append(tok)
+        self.stats["tokens_out"] += 1
+        hit_stop = (req.stop_token is not None and tok == req.stop_token)
+        if hit_stop or len(req.generated) >= req.max_tokens:
+            if hit_stop:
+                req.generated.pop()  # don't emit the stop token
+            req.done = True
+            req.finished_at = time.monotonic()
+
+    def _select_block(self) -> int:
+        """Decode-block tier for the next dispatch (lock held): 1 while
+        admissions wait, pressure_decode_block while requests queue for
+        slots, decode_block otherwise."""
+        if self._admissions_blocked():
+            return 1
+        if self._waiting:
+            return max(1, min(self.cfg.pressure_decode_block,
+                              self.cfg.decode_block))
+        return self.cfg.decode_block
+
+    def _flush_slot_patches(self, dirty: dict, overrides: dict) -> None:
+        """Apply queued slot-state patches at the fixed B+1 shape (padded
+        onto the trash row, whose state is all zeros by invariant) and
+        write first-token overrides into the device token vector. Loop
+        thread only."""
+        trash_row = self.cfg.max_batch_size
+        dev = self.device
+        if dirty:
+            order = sorted(dirty)
+            pad = (trash_row + 1) - len(order)
+            didx = torch.tensor(order + [trash_row] * pad, dtype=torch.long,
+                                device=dev)
+            ptv = np.zeros((trash_row + 1, self.max_pages_per_seq), np.int32)
+            ptv[: len(order)] = self.page_tables[order]
+            slv = np.zeros((trash_row + 1,), np.int32)
+            slv[: len(order)] = [dirty[i][0] for i in order]
+            tv = np.zeros((trash_row + 1,), np.float32)
+            tv[: len(order)] = [dirty[i][1] for i in order]
+            self._pt_dev[didx] = self._to_device(ptv)
+            self._sl_dev[didx] = self._to_device(slv)
+            self._temps_dev[didx] = self._to_device(tv)
+        if overrides:
+            # values are on-device tokens from prefills: stacking and
+            # scattering stays on the device — no host sync
+            pad = (trash_row + 1) - len(overrides)
+            oidx = torch.tensor(list(overrides) + [trash_row] * pad,
+                                dtype=torch.long, device=dev)
+            ovals = torch.stack(
+                [torch.as_tensor(v, device=dev).long().reshape(())
+                 for v in overrides.values()] + [self._zero_tok] * pad)
+            self._dev_tokens[oidx] = ovals
+
+    def _decode_step(self) -> bool:
+        """Dispatch one decode block (1..decode_block steps) without waiting
+        for its result; harvest PIPELINE_DEPTH blocks behind. The stream
+        is ordered, so an in-flight block that still references a freed
+        slot's pages runs BEFORE any later prefill that reuses them."""
+        with self._lock:
+            snapshot = [(i, i, req) for i, req in enumerate(self.slot_req)
+                        if req is not None
+                        and req.dispatched < req.max_tokens]
+            if not snapshot:
+                return False
+            # Overshoot past a request's max_tokens is by-design safe:
+            # extra writes land in the slot's own tail pages or the trash
+            # page, and harvest discards them.
+            k = self._select_block()
+            self._last_block = k
+            dirty, self._dirty_slots = self._dirty_slots, {}
+            overrides, self._overrides = self._overrides, {}
+            for _col, _slot, req in snapshot:
+                req.dispatched += k
+        # decode_dispatch times the HOST cost of dispatching the block; the
+        # device sync is the harvest phase
+        t0 = time.perf_counter() if self._prof.enabled else 0.0
+        self._flush_slot_patches(dirty, overrides)
+        # bucketed width: pack the active slots, pad with the trash row
+        active_slots = [slot for _c, slot, _r in snapshot]
+        w = self._bucket_width(len(active_slots))
+        trash = self.cfg.max_batch_size
+        idx = torch.tensor(active_slots + [trash] * (w - len(active_slots)),
+                           dtype=torch.long, device=self.device)
+        snapshot = [(col, slot, req)
+                    for col, (_c, slot, req) in enumerate(snapshot)]
+        with self._prof.compile_scope(
+                "decode", ("decode", w, k),
+                mid_traffic=self.stats["requests"] > 0):
+            all_toks = self._decode_block(idx, k)
+        self._pending.append((_Fetch(all_toks), snapshot, k))
+        self.stats["steps"] += k
+        self.stats["attn_decode_dispatches"] += 1
+        if self._prof.enabled:
+            self._prof.record("decode_dispatch", time.perf_counter() - t0)
+        if len(self._pending) > self.PIPELINE_DEPTH:
+            self._harvest_one()
+        return True
+
+    def _harvest_one(self) -> None:
+        """Block on the OLDEST in-flight block's tokens and record them.
+
+        Entries are decode blocks (tokens [k, W] at the PACKED bucket
+        width — the column is the request's position in that block's
+        packed index vector, NOT its slot id) or prefill first-tokens
+        (scalar, column 0)."""
+        with self._lock:
+            if not self._pending:
+                return
+            fetch, snapshot, k = self._pending.pop(0)
+        if self._prof.enabled:
+            t0 = time.perf_counter()
+            host_toks = fetch.wait()  # THE device sync: oldest block only
+            self._prof.record("harvest", time.perf_counter() - t0)
+        else:
+            host_toks = fetch.wait()
+        host_toks = host_toks.reshape(k, -1)
+        finished: list[_Request] = []
+        with self._lock:
+            for step in range(k):
+                for col, slot, req in snapshot:
+                    if req.done:
+                        continue  # stop/max lag: discard overshoot tokens
+                    self._record_token(req, int(host_toks[step, col]))
+                    if req.done:
+                        finished.append(req)
+                        if self.slot_req[slot] is req:
+                            self.slot_req[slot] = None
+                            self.free_slots.append(slot)
+                            self.page_tables[slot] = 0
+                            self.seq_lens[slot] = 0
+                            # invalidate the DEVICE row too: a stale device
+                            # page table keeps scattering this slot's junk
+                            # KV into pages after they're reallocated
+                            self._dirty_slots[slot] = (0, 0.0)
+        self._finish_requests(finished)
+
+    def _finish_requests(self, finished: list[_Request]) -> None:
+        """Completion tail: free pages, release waiters, reap abandoned."""
+        for req in finished:
+            self.allocator.free(req.pages)
+            req.pages = []
+        for req in finished:
+            req.done_event.set()
+            if req.abandoned:
+                with self._lock:
+                    self._requests.pop(req.request_id, None)
