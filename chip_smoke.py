@@ -12,11 +12,22 @@ Phases, each of which raises on failure (nothing is caught and carried on):
    its bound and the plain version's time;
 3. greedy identity: ``LLMEngine`` on llama_tiny in fp32 through the kernel
    and through the gather path must produce identical tokens;
-4. the main path at full width: ``LLMServer`` serving llama3_1b (bf16,
+4. the serving path at full width: ``LLMServer`` serving llama3_1b (bf16,
    random weights from a seeded generator) at the serve bench's engine
    settings answers completions, some concurrent, through the kernel; every
    kernel's launch counter is zeroed just before and read just after. Then
-   one decode step's logits through the kernel and through the gather path.
+   one decode step's logits through the kernel and through the gather path;
+5. the three flash-attention kernels against their plain versions on the
+   card (bf16 and fp32, causal and not, at the training shapes and a small
+   one; two backward runs bit-identical), then timed beside their bounds,
+   the plain versions and ``scaled_dot_product_attention``;
+6. the training path at full width: ``ray_torch.train.spmd`` trains
+   llama3_1b (the repo's bench recipe: bf16, "dots" remat, one 2048-wide
+   CE chunk kept, flash attention, adafactor, batch 4 x 2048) for 3 warmup
+   and 5 timed steps from seeded random weights; every flash counter is
+   zeroed just before and read just after;
+7. the flash kernels against the dense path end to end: llama_tiny fp32
+   (grads and three train steps) and one llama3_1b bf16 step.
 
 Prints numbers on earlier lines, then a ``{"kernels": [...]}`` line, then
 the card's name and power limit, and as its last line
@@ -27,12 +38,15 @@ and prints no result.
 from __future__ import annotations
 
 import concurrent.futures
+import dataclasses
+import functools
 import json
 import statistics
 import subprocess
 import sys
 import time
 
+import numpy as np
 import torch
 
 HBM_BYTES_PER_S = 3.35e12            # H100 SXM, NVIDIA data sheet
@@ -265,10 +279,10 @@ def phase_identity():
 # phase 4: the main path at full width
 # ---------------------------------------------------------------------------
 
-def device_profile(run):
+def device_profile(run, top: int = 8):
     """Run ``run()`` under torch.profiler (CUDA activity only, to keep the
     host overhead low) and summarize the kernels: total device time, its
-    share of the wall time, and the top kernels by device time."""
+    share of the wall time, and the ``top`` kernels by device time."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -280,10 +294,10 @@ def device_profile(run):
                if e.device_type == torch.autograd.DeviceType.CUDA
                and e.self_device_time_total > 0]
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
-    log(f"  profiled wave: wall {1e3 * wall:.1f} ms, kernels "
+    log(f"  profiled run: wall {1e3 * wall:.1f} ms, kernels "
         f"{busy_ms:.1f} ms = device busy {100 * busy_ms / (1e3 * wall):.1f}%"
         f" of the wall ({sum(e.count for e in kernels)} launches)")
-    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]:
+    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:top]:
         log(f"    {e.self_device_time_total / 1e3:8.2f} ms {e.count:6d}x "
             f"{e.key[:90]}")
 
@@ -439,6 +453,325 @@ def phase_logits(params):
         del weights, pool, kv, out
 
 
+# ---------------------------------------------------------------------------
+# phase 5: the flash-attention kernels against their plain versions
+# ---------------------------------------------------------------------------
+
+def flash_case(b, t, h, d, dtype, *, seed):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    return [torch.randn(b, t, h, d, generator=g, device="cuda").to(dtype)
+            for _ in range(4)]                      # q, k, v, dO
+
+
+def flash_bound(shape, dtype, causal, products, tensors, stats):
+    """Least time on an H100 for a function over [B, T, H, D] tensors:
+    ``products`` matrix products of 2 * D flop per (query, key) pair that
+    the function needs (T(T+1)/2 pairs a head when causal), against
+    ``tensors`` [B, T, H, D] tensors and ``stats`` [B, H, T] fp32 rows,
+    each read or written once."""
+    b, t, h, d = shape
+    pairs = t * (t + 1) // 2 if causal else t * t
+    flops = products * 2 * d * pairs * b * h
+    item = torch.finfo(dtype).bits // 8
+    nbytes = tensors * b * t * h * d * item + stats * b * h * t * 4
+    t_ops, t_bytes = flops / PEAK_FLOPS[dtype], nbytes / HBM_BYTES_PER_S
+    return 1e3 * max(t_ops, t_bytes), ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def phase_flash(card: str):
+    from ray_torch.ops import attention as fa
+
+    def check(name, got, want, dtype):
+        diff = (got.float() - want.float()).abs()
+        err = float(diff.max())
+        ok = bool((diff <= TOL[dtype] * (1 + want.float().abs())).all())
+        log(f"  {name:<44} {str(dtype):<15} max_abs_err={err:.3e} "
+            f"(tol {TOL[dtype]:g}) {'ok' if ok else 'FAIL'}")
+        if not (ok and torch.isfinite(got).all()):
+            raise AssertionError(f"flash kernel disagrees with its plain "
+                                 f"version: {name} {dtype}")
+        return err
+
+    errs = {"flash_fwd": 0.0, "flash_bwd_dkdv": 0.0, "flash_bwd_dq": 0.0}
+    for dtype in (torch.bfloat16, torch.float32):
+        for b, t, h, d in ((4, 2048, 16, 128), (1, 256, 4, 64)):
+            for causal in (True, False):
+                q, k, v, do = flash_case(b, t, h, d, dtype, seed=t + causal)
+                sm = d ** -0.5
+                tag = f"B={b} T={t} H={h} D={d} causal={causal}"
+                out, lse = fa.flash_fwd(q, k, v, causal, sm)
+                want_out, want_lse = fa.flash_forward_reference(
+                    q, k, v, causal, sm)
+                torch.cuda.synchronize()
+                e = max(check(f"fwd out {tag}", out, want_out, dtype),
+                        check(f"fwd lse {tag}", lse, want_lse, dtype))
+                errs["flash_fwd"] = max(errs["flash_fwd"], e)
+                # both backward kernels on the forward kernel's outputs
+                delta = fa.flash_delta(do, out)
+                dk, dv = fa.flash_bwd_dkdv(q, k, v, do, lse, delta, causal,
+                                           sm)
+                dq = fa.flash_bwd_dq(q, k, v, do, lse, delta, causal, sm)
+                dk2, dv2 = fa.flash_bwd_dkdv(q, k, v, do, lse, delta, causal,
+                                             sm)
+                dq2 = fa.flash_bwd_dq(q, k, v, do, lse, delta, causal, sm)
+                want_dq, want_dk, want_dv = fa.flash_backward_reference(
+                    q, k, v, do, lse, delta, causal, sm)
+                torch.cuda.synchronize()
+                errs["flash_bwd_dkdv"] = max(
+                    errs["flash_bwd_dkdv"],
+                    check(f"bwd dk {tag}", dk, want_dk, dtype),
+                    check(f"bwd dv {tag}", dv, want_dv, dtype))
+                errs["flash_bwd_dq"] = max(
+                    errs["flash_bwd_dq"],
+                    check(f"bwd dq {tag}", dq, want_dq, dtype))
+                if not (torch.equal(dk, dk2) and torch.equal(dv, dv2)
+                        and torch.equal(dq, dq2)):
+                    raise AssertionError(f"two backward runs differ: {tag}")
+                del want_dq, want_dk, want_dv
+    log("  two backward runs bit-identical in every case")
+
+    # timings at the training shapes, bf16, causal
+    shape = (4, 2048, 16, 128)
+    q, k, v, do = flash_case(*shape, torch.bfloat16, seed=1)
+    sm = shape[-1] ** -0.5
+    out, lse = fa.flash_fwd(q, k, v, True, sm)
+    delta = fa.flash_delta(do, out)
+    qh, kh, vh, doh = (x.transpose(1, 2) for x in (q, k, v, do))
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    lib = torch.ops.aten._scaled_dot_product_flash_attention(
+        qh, kh, vh, 0.0, True, False, scale=sm)
+
+    def lib_bwd():
+        return torch.ops.aten._scaled_dot_product_flash_attention_backward(
+            doh, qh, kh, vh, lib[0], lib[1], lib[2], lib[3], lib[4], lib[5],
+            0.0, True, lib[6], lib[7], scale=sm)
+
+    # the library's backward computes what the pair computes
+    ldq, ldk, ldv = lib_bwd()
+    want_dq, want_dk, want_dv = fa.flash_backward_reference(
+        q, k, v, do, lse, delta, True, sm)
+    torch.cuda.synchronize()
+    for name, got, want in (("dq", ldq, want_dq), ("dk", ldk, want_dk),
+                            ("dv", ldv, want_dv)):
+        err = float((got.transpose(1, 2).float() - want.float()).abs().max())
+        log(f"  library backward {name} vs plain: max_abs_err={err:.3e}")
+    del want_dq, want_dk, want_dv, ldq, ldk, ldv
+
+    leaves = [x.detach().clone().requires_grad_() for x in (q, k, v)]
+    lleaves = [x.detach().clone().requires_grad_() for x in (qh, kh, vh)]
+
+    def ours_fwd_bwd():
+        fa.flash_attention(*leaves).backward(do)
+
+    def lib_fwd_bwd():
+        sdpa(*lleaves, is_causal=True).backward(doh)
+
+    t = {
+        "flash_fwd": time_ms(lambda: fa.flash_fwd(q, k, v, True, sm)),
+        "flash_bwd_dkdv": time_ms(lambda: fa.flash_bwd_dkdv(
+            q, k, v, do, lse, delta, True, sm)),
+        "flash_bwd_dq": time_ms(lambda: fa.flash_bwd_dq(
+            q, k, v, do, lse, delta, True, sm)),
+        "plain_fwd": time_ms(lambda: fa.flash_forward_reference(
+            q, k, v, True, sm), reps=5, per_rep=2),
+        "plain_bwd": time_ms(lambda: fa.flash_backward_reference(
+            q, k, v, do, lse, delta, True, sm), reps=5, per_rep=2),
+        "lib_fwd": time_ms(lambda: sdpa(qh, kh, vh, is_causal=True)),
+        "lib_bwd": time_ms(lib_bwd),
+        "ours_fwd_bwd": time_ms(ours_fwd_bwd),
+        "lib_fwd_bwd": time_ms(lib_fwd_bwd),
+    }
+    bounds = {
+        "flash_fwd": flash_bound(shape, torch.bfloat16, True, 2, 4, 1),
+        "flash_bwd_dkdv": flash_bound(shape, torch.bfloat16, True, 4, 6, 2),
+        "flash_bwd_dq": flash_bound(shape, torch.bfloat16, True, 3, 5, 2),
+    }
+    pair_bound, pair_by = flash_bound(shape, torch.bfloat16, True, 5, 7, 2)
+    plain = {"flash_fwd": t["plain_fwd"], "flash_bwd_dkdv": t["plain_bwd"],
+             "flash_bwd_dq": t["plain_bwd"]}
+    library = {"flash_fwd": t["lib_fwd"], "flash_bwd_dkdv": t["lib_bwd"],
+               "flash_bwd_dq": t["lib_bwd"]}
+    replaces = {"flash_fwd": "ray_tpu/ops/attention.py:26",
+                "flash_bwd_dkdv": "ray_tpu/ops/attention.py:120",
+                "flash_bwd_dq": "ray_tpu/ops/attention.py:172"}
+    timings = []
+    for name in ("flash_fwd", "flash_bwd_dkdv", "flash_bwd_dq"):
+        bound, bound_by = bounds[name]
+        log(f"  time {name:<15} B=4 T=2048 H=16 D=128 causal bf16: kernel "
+            f"{t[name]:.4f} ms, plain {plain[name]:.4f} ms, bound "
+            f"{bound:.4f} ms ({bound_by}), library {library[name]:.4f} ms "
+            f"[{card}]")
+        timings.append({"name": name, "route": "cuda",
+                        "source": "ray_torch/ops/csrc/flash_attention.cu",
+                        "replaces": replaces[name],
+                        "max_abs_err": errs[name], "ms": t[name],
+                        "plain_ms": plain[name], "bound_ms": bound,
+                        "bound_by": bound_by, "library_ms": library[name]})
+    log(f"  time backward pair (dk/dv + dq): kernels "
+        f"{t['flash_bwd_dkdv'] + t['flash_bwd_dq']:.4f} ms, bound "
+        f"{pair_bound:.4f} ms ({pair_by}), plain {t['plain_bwd']:.4f} ms, "
+        f"library backward {t['lib_bwd']:.4f} ms [{card}]")
+    log(f"  time forward + backward through autograd: ours "
+        f"{t['ours_fwd_bwd']:.4f} ms, scaled_dot_product_attention "
+        f"{t['lib_fwd_bwd']:.4f} ms [{card}]")
+    return timings
+
+
+# ---------------------------------------------------------------------------
+# phase 6: the training path at full width
+# ---------------------------------------------------------------------------
+
+TRAIN_BATCH, TRAIN_SEQ = 4, 2048
+
+
+def train_recipe(**kw):
+    """bench.py's llama3_1b training recipe (``bench.py:146-150``)."""
+    from ray_torch.models import llama
+    from ray_torch.train import spmd
+
+    cfg = llama.llama3_1b(max_seq_len=2048, remat_policy="dots",
+                          ce_chunk=2048, ce_remat=False, attn_impl="flash")
+    cfg = dataclasses.replace(cfg, **kw)
+    params = llama.init_params(
+        cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
+    opt = spmd.default_optimizer(warmup_steps=10, decay_steps=1000,
+                                 name="adafactor")
+    state = spmd.create_state(params, opt)
+    step = spmd.make_train_step(functools.partial(llama.loss_fn, cfg=cfg),
+                                opt)
+    tokens = np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (TRAIN_BATCH, TRAIN_SEQ + 1), dtype=np.int32)
+    return cfg, state, step, spmd.shard_batch({"tokens": tokens}, "cuda")
+
+
+def phase_train(card: str):
+    from ray_torch.models import llama
+    from ray_torch.ops import attention as fa
+
+    t0 = time.perf_counter()
+    cfg, state, step, batch = train_recipe()
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    for name in fa.launches:                # count the main path only
+        fa.launches[name] = 0
+    warmup, timed = 3, 5
+    losses, norms, times = [], [], []
+    for _ in range(warmup + timed):
+        t0 = time.perf_counter()
+        state, m = step(state, batch)
+        losses.append(float(m["loss"]))     # the host read is the sync
+        norms.append(float(m["grad_norm"]))
+        times.append(time.perf_counter() - t0)
+    launches = dict(fa.launches)
+    peak = torch.cuda.max_memory_allocated()
+    # where one step's device time goes, outside the counted steps
+    device_profile(lambda: step(state, batch), top=14)
+
+    step_ms = 1e3 * statistics.median(times[warmup:])
+    tokens_s = TRAIN_BATCH * TRAIN_SEQ / (step_ms / 1e3)
+    n_params = llama.num_params(cfg)
+    mfu = 6 * n_params * tokens_s / PEAK_FLOPS[torch.bfloat16]
+    steps = warmup + timed
+    log(f"  llama3_1b bf16 ({n_params / 1e9:.3f}B params), batch "
+        f"{TRAIN_BATCH} x {TRAIN_SEQ}, dots remat, flash, adafactor; state "
+        f"built in {setup_s:.2f} s [{card}]")
+    log(f"  step ms: {', '.join(f'{1e3 * x:.1f}' for x in times)} (first "
+        f"{warmup} warmup); median of the timed {step_ms:.1f} ms [{card}]")
+    log(f"  tokens/s {tokens_s:.1f}; MFU {mfu:.4f} (6 * params * tokens/s / "
+        f"989 TFLOP/s, attention flops left out, as bench.py:208) [{card}]")
+    log(f"  peak torch.cuda.max_memory_allocated {peak / 2**30:.3f} GiB "
+        f"[{card}]")
+    log(f"  loss per step: {', '.join(f'{x:.6f}' for x in losses)}")
+    log(f"  grad_norm per step: {', '.join(f'{x:.4f}' for x in norms)}")
+    log(f"  flash launches over {steps} steps: "
+        + ", ".join(f"{k} {v} ({v / steps:g}/step)"
+                    for k, v in launches.items()))
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"non-finite loss: {losses}")
+    if losses[1] != losses[0]:
+        raise AssertionError(f"step 1's loss {losses[1]!r} differs from step "
+                             f"0's {losses[0]!r}: the lr is 0 at count 0")
+    log("  step 1's loss equals step 0's exactly (lr 0 at count 0)")
+    if not all(v > 0 for v in launches.values()):
+        raise AssertionError(f"a flash kernel was not launched: {launches}")
+    return launches, steps
+
+
+# ---------------------------------------------------------------------------
+# phase 7: the flash kernels against the dense path, end to end
+# ---------------------------------------------------------------------------
+
+def phase_flash_vs_dense():
+    """llama_tiny fp32 (head_dim 16), flash kernels vs the dense path:
+    every gradient of loss_fn at the initial weights, then three adamw
+    steps' losses, to 1e-4 relative to (1 + |ref|) — the two paths differ
+    only in the order fp32 sums are taken (and the dense path's rounding
+    of q.k to fp32, a no-op). Then one llama3_1b bf16 step: the dense path
+    rounds q.k to bf16 before the softmax and flash does not, so attention
+    outputs differ by ~2^-8 relative; over 16 layers that moves a loss of
+    ~11.8 (ln 128256) by far less than 1e-2, and the grad norm by far less
+    than 5%."""
+    from ray_torch.models import llama
+    from ray_torch.train import spmd
+
+    tiny = {impl: llama.llama_tiny(attn_impl=impl)
+            for impl in ("dense", "flash")}
+    g = torch.Generator(device="cuda").manual_seed(3)
+    params = llama.init_params(tiny["dense"], g, "cuda")
+    tokens = torch.from_numpy(np.random.default_rng(1).integers(
+        0, 256, (2, 65), dtype=np.int32)).cuda()
+    grads = {}
+    for impl, cfg in tiny.items():
+        leaves = {k: v.detach().clone().requires_grad_()
+                  for k, v in llama.flatten_params(params).items()}
+        loss = llama.loss_fn(llama.unflatten_params(leaves),
+                             {"tokens": tokens}, cfg)
+        grads[impl] = dict(zip(leaves, torch.autograd.grad(
+            loss, list(leaves.values()))))
+    worst = 0.0
+    for name, want in grads["dense"].items():
+        diff = (grads["flash"][name] - want).abs()
+        worst = max(worst, float((diff / (1 + want.abs())).max()))
+    log(f"  llama_tiny fp32 grads, flash vs dense: worst |diff|/(1+|ref|) "
+        f"{worst:.3e} (tol 1e-4)")
+    if worst > 1e-4:
+        raise AssertionError("llama_tiny grads: flash and dense disagree")
+    losses = {}
+    for impl, cfg in tiny.items():
+        opt = spmd.default_optimizer(warmup_steps=1, decay_steps=10)
+        state = spmd.create_state(llama.unflatten_params(
+            {k: v.clone() for k, v in llama.flatten_params(params).items()}),
+            opt)
+        step = spmd.make_train_step(functools.partial(llama.loss_fn, cfg=cfg),
+                                    opt)
+        losses[impl] = []
+        for _ in range(3):
+            state, m = step(state, {"tokens": tokens})
+            losses[impl].append(float(m["loss"]))
+    log(f"  llama_tiny fp32 three adamw steps: loss flash "
+        f"{losses['flash']} vs dense {losses['dense']}")
+    for a, b in zip(losses["flash"], losses["dense"]):
+        if abs(a - b) > 1e-4 * (1 + abs(b)):
+            raise AssertionError("llama_tiny train losses: flash and dense "
+                                 "disagree")
+
+    full = {}
+    for impl in ("flash", "dense"):
+        _, state, step, batch = train_recipe(attn_impl=impl)
+        _, m = step(state, batch)
+        full[impl] = (float(m["loss"]), float(m["grad_norm"]))
+        del state, step, batch, m
+        torch.cuda.empty_cache()
+    (fl, fg), (dl, dg) = full["flash"], full["dense"]
+    log(f"  llama3_1b bf16 one step: loss flash {fl:.6f} vs dense {dl:.6f} "
+        f"(|diff| {abs(fl - dl):.2e}, tol 1e-2); grad_norm flash {fg:.5f} vs "
+        f"dense {dg:.5f} ({100 * abs(fg - dg) / dg:.3f}%, tol 5%)")
+    if abs(fl - dl) > 1e-2 or abs(fg - dg) > 0.05 * dg:
+        raise AssertionError("llama3_1b: flash and dense steps disagree")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
@@ -475,12 +808,33 @@ def main() -> int:
     t0 = time.perf_counter()
     params, launches = phase_serve(card)
     phase_logits(params)
-    log(f"  phase 4: {time.perf_counter() - t0:.1f} s; total "
-        f"{time.perf_counter() - t_all:.1f} s")
-
+    log(f"  phase 4: {time.perf_counter() - t0:.1f} s")
     for k in kernels:
         k["launches"] = launches
-    print(json.dumps({"kernels": kernels}))
+    del params
+    torch.cuda.empty_cache()
+
+    log("[5] flash-attention kernels vs plain versions")
+    t0 = time.perf_counter()
+    flash = phase_flash(card)
+    log(f"  phase 5: {time.perf_counter() - t0:.1f} s")
+    torch.cuda.empty_cache()
+
+    log("[6] main path: ray_torch.train.spmd, llama3_1b at full width")
+    t0 = time.perf_counter()
+    train_launches, _ = phase_train(card)
+    for k in flash:
+        k["launches"] = train_launches[k["name"]]
+    log(f"  phase 6: {time.perf_counter() - t0:.1f} s")
+    torch.cuda.empty_cache()
+
+    log("[7] flash kernels vs the dense path, end to end")
+    t0 = time.perf_counter()
+    phase_flash_vs_dense()
+    log(f"  phase 7: {time.perf_counter() - t0:.1f} s; total "
+        f"{time.perf_counter() - t_all:.1f} s")
+
+    print(json.dumps({"kernels": kernels + flash}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
