@@ -6,7 +6,8 @@
 Phases, each of which raises on failure (nothing is caught and carried on):
 
 1. device: the card's name and power limit; the CUDA kernels built from the
-   sources in this checkout (one ``nvcc`` per source, started together);
+   sources in this checkout (one ``nvcc`` per source, started together),
+   each kernel's registers and spills (a Hopper kernel that spills fails);
 2. every kernel against its plain PyTorch version on the card, at the shapes
    the main path gives it, in bf16 and fp32, then timed (CUDA events) beside
    its bound and the plain version's time;
@@ -18,14 +19,17 @@ Phases, each of which raises on failure (nothing is caught and carried on):
    kernel's launch counter is zeroed just before and read just after. Then
    one decode step's logits through the kernel and through the gather path;
 5. the three flash-attention kernels against their plain versions on the
-   card (bf16 and fp32, causal and not, at the training shapes and a small
-   one; two backward runs bit-identical), then timed beside their bounds,
-   the plain versions and ``scaled_dot_product_attention``;
+   card (bf16 and fp32, causal and not, at the training shapes, a small
+   D=64 one and a ragged T=200 with B=2, H=3 at D=128 and D=32; two
+   backward runs bit-identical), then timed beside their bounds, the plain
+   versions and ``scaled_dot_product_attention`` under each backend that
+   takes the shape (the fastest is the ``library_ms`` yardstick);
 6. the training path at full width: ``ray_torch.train.spmd`` trains
    llama3_1b (the repo's bench recipe: bf16, "dots" remat, one 2048-wide
    CE chunk kept, flash attention, adafactor, batch 4 x 2048) for 3 warmup
    and 5 timed steps from seeded random weights; every flash counter is
-   zeroed just before and read just after;
+   zeroed just before and read just after; one profiled step gives the
+   flash kernels' share of the device time;
 7. the flash kernels against the dense path end to end: llama_tiny fp32
    (grads and three train steps) and one llama3_1b bf16 step.
 
@@ -41,6 +45,7 @@ import concurrent.futures
 import dataclasses
 import functools
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -57,6 +62,32 @@ TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-5}  # tests/test_paged_kernels.py
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+def ptxas_summary(text: str):
+    """(kernel, registers, spill-store bytes, spill-load bytes) for each
+    kernel of an ``nvcc -Xptxas -v`` log, the kernel named with its
+    template arguments (``flash_fwd_hopper<128>``)."""
+    out, kernel, spill = [], None, (0, 0)
+    for line in text.splitlines():
+        m = re.search(r"Compiling entry function '_Z\w*?\d((?:flash|paged)_"
+                      r"\w+?)I(\w+?)E+v", line)
+        if m:
+            args = [{"f": "float", "13__nv_bfloat16": "bf16"}.get(
+                        a.group(0), a.group(1))
+                    for a in re.finditer(r"13__nv_bfloat16|Li(\d+)|f",
+                                         m.group(2))]
+            kernel = f"{m.group(1)}<{', '.join(args)}>"
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            spill = (int(m.group(1)), int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and kernel:
+            out.append((kernel, int(m.group(1)), *spill))
+            kernel, spill = None, (0, 0)
+    return out
 
 
 def card_line() -> str:
@@ -134,6 +165,22 @@ def time_ms(fn, reps: int = 25, per_rep: int = 10) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end) / per_rep)
     return statistics.median(times)
+
+
+def device_ms(fn, reps: int = 10) -> float:
+    """Device time of one ``fn()``: the CUDA kernels (and memsets) it
+    launches, summed by torch.profiler over ``reps`` calls, over reps."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    total = sum(e.self_device_time_total for e in prof.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CUDA)
+    return total / 1e3 / reps
 
 
 def phase_kernels(card: str):
@@ -226,7 +273,8 @@ def phase_kernels(card: str):
                         "replaces": "ray_tpu/ops/paged_attention.py:77",
                         "max_abs_err": errs[key], "ms": ms,
                         "plain_ms": plain_ms, "bound_ms": bound,
-                        "bound_by": bound_by, "library_ms": None})
+                        "bound_by": bound_by, "library_ms": None,
+                        "library": None})
     return timings
 
 
@@ -300,6 +348,7 @@ def device_profile(run, top: int = 8):
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:top]:
         log(f"    {e.self_device_time_total / 1e3:8.2f} ms {e.count:6d}x "
             f"{e.key[:90]}")
+    return busy_ms, {e.key: e.self_device_time_total / 1e3 for e in kernels}
 
 
 def phase_serve(card: str):
@@ -479,6 +528,59 @@ def flash_bound(shape, dtype, causal, products, tensors, stats):
                                        else "operations")
 
 
+def library_attention(q, k, v, do, plain_grads, sm, card):
+    """``scaled_dot_product_attention`` on [B, H, T, D] views of the same
+    inputs (causal), under each backend that takes them: its gradients
+    held to the plain backward's, then its forward, its backward alone
+    (``autograd.grad`` of a kept forward) and the two through autograd,
+    timed with CUDA events, and the forward and the backward also by their
+    kernels' device time (``device_ms``: what the card spends, whatever
+    the host adds; a slow host can make the backward's event time its own
+    dispatch time). The port never calls it: it is the yardstick. Returns
+    ``{backend: (fwd_device_ms, bwd_device_ms, fwd_bwd_ms)}``."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    qh, kh, vh, doh = (x.transpose(1, 2) for x in (q, k, v, do))
+    found = {}
+    for backend in (SDPBackend.FLASH_ATTENTION, SDPBackend.CUDNN_ATTENTION,
+                    SDPBackend.EFFICIENT_ATTENTION):
+        name = backend.name
+        leaves = [x.detach().clone().requires_grad_() for x in (qh, kh, vh)]
+        with sdpa_kernel(backend):
+            try:
+                o = sdpa(*leaves, is_causal=True, scale=sm)
+                grads = torch.autograd.grad(o, leaves, doh, retain_graph=True)
+                torch.cuda.synchronize()
+            except RuntimeError as e:
+                log(f"  library {name}: does not take the shape "
+                    f"({str(e).splitlines()[0][:120]})")
+                continue
+            err = max(float((g.transpose(1, 2).float() - w.float())
+                            .abs().max())
+                      for g, w in zip(grads, plain_grads))
+            def fwd():
+                return sdpa(qh, kh, vh, is_causal=True, scale=sm)
+
+            def bwd():
+                return torch.autograd.grad(o, leaves, doh, retain_graph=True)
+
+            both = time_ms(lambda: torch.autograd.grad(
+                sdpa(*leaves, is_causal=True, scale=sm), leaves, doh))
+            times = (time_ms(fwd), device_ms(fwd), time_ms(bwd),
+                     device_ms(bwd))
+        found[name] = (times[1], times[3], both)
+        log(f"  library {name}: forward {times[0]:.4f} ms (device "
+            f"{times[1]:.4f}), backward {times[2]:.4f} ms (device "
+            f"{times[3]:.4f}), forward + backward {both:.4f} ms; gradients "
+            f"vs plain max_abs_err={err:.3e} [{card}]")
+        del o, grads, leaves
+    if not found:
+        raise AssertionError("no scaled_dot_product_attention backend took "
+                             "the training shape")
+    return found
+
+
 def phase_flash(card: str):
     from ray_torch.ops import attention as fa
 
@@ -495,9 +597,15 @@ def phase_flash(card: str):
 
     errs = {"flash_fwd": 0.0, "flash_bwd_dkdv": 0.0, "flash_bwd_dq": 0.0}
     for dtype in (torch.bfloat16, torch.float32):
-        for b, t, h, d in ((4, 2048, 16, 128), (1, 256, 4, 64)):
+        # the training shape; a small D=64 one; T=200 (a ragged second
+        # 128-row tile) with B=2 (a tile load must not read into the next
+        # batch) and H=3 (the head stride), at D=128 and at D=32 (64-byte
+        # rows, the narrower swizzle)
+        for b, t, h, d in ((4, 2048, 16, 128), (1, 256, 4, 64),
+                           (2, 200, 3, 128), (2, 200, 3, 32)):
             for causal in (True, False):
-                q, k, v, do = flash_case(b, t, h, d, dtype, seed=t + causal)
+                q, k, v, do = flash_case(b, t, h, d, dtype,
+                                         seed=t + d + causal)
                 sm = d ** -0.5
                 tag = f"B={b} T={t} H={h} D={d} causal={causal}"
                 out, lse = fa.flash_fwd(q, k, v, causal, sm)
@@ -537,35 +645,12 @@ def phase_flash(card: str):
     sm = shape[-1] ** -0.5
     out, lse = fa.flash_fwd(q, k, v, True, sm)
     delta = fa.flash_delta(do, out)
-    qh, kh, vh, doh = (x.transpose(1, 2) for x in (q, k, v, do))
-    sdpa = torch.nn.functional.scaled_dot_product_attention
-    lib = torch.ops.aten._scaled_dot_product_flash_attention(
-        qh, kh, vh, 0.0, True, False, scale=sm)
-
-    def lib_bwd():
-        return torch.ops.aten._scaled_dot_product_flash_attention_backward(
-            doh, qh, kh, vh, lib[0], lib[1], lib[2], lib[3], lib[4], lib[5],
-            0.0, True, lib[6], lib[7], scale=sm)
-
-    # the library's backward computes what the pair computes
-    ldq, ldk, ldv = lib_bwd()
-    want_dq, want_dk, want_dv = fa.flash_backward_reference(
-        q, k, v, do, lse, delta, True, sm)
-    torch.cuda.synchronize()
-    for name, got, want in (("dq", ldq, want_dq), ("dk", ldk, want_dk),
-                            ("dv", ldv, want_dv)):
-        err = float((got.transpose(1, 2).float() - want.float()).abs().max())
-        log(f"  library backward {name} vs plain: max_abs_err={err:.3e}")
-    del want_dq, want_dk, want_dv, ldq, ldk, ldv
-
+    library = library_attention(q, k, v, do, fa.flash_backward_reference(
+        q, k, v, do, lse, delta, True, sm), sm, card)
     leaves = [x.detach().clone().requires_grad_() for x in (q, k, v)]
-    lleaves = [x.detach().clone().requires_grad_() for x in (qh, kh, vh)]
 
     def ours_fwd_bwd():
         fa.flash_attention(*leaves).backward(do)
-
-    def lib_fwd_bwd():
-        sdpa(*lleaves, is_causal=True).backward(doh)
 
     t = {
         "flash_fwd": time_ms(lambda: fa.flash_fwd(q, k, v, True, sm)),
@@ -577,10 +662,7 @@ def phase_flash(card: str):
             q, k, v, True, sm), reps=5, per_rep=2),
         "plain_bwd": time_ms(lambda: fa.flash_backward_reference(
             q, k, v, do, lse, delta, True, sm), reps=5, per_rep=2),
-        "lib_fwd": time_ms(lambda: sdpa(qh, kh, vh, is_causal=True)),
-        "lib_bwd": time_ms(lib_bwd),
         "ours_fwd_bwd": time_ms(ours_fwd_bwd),
-        "lib_fwd_bwd": time_ms(lib_fwd_bwd),
     }
     bounds = {
         "flash_fwd": flash_bound(shape, torch.bfloat16, True, 2, 4, 1),
@@ -590,31 +672,41 @@ def phase_flash(card: str):
     pair_bound, pair_by = flash_bound(shape, torch.bfloat16, True, 5, 7, 2)
     plain = {"flash_fwd": t["plain_fwd"], "flash_bwd_dkdv": t["plain_bwd"],
              "flash_bwd_dq": t["plain_bwd"]}
-    library = {"flash_fwd": t["lib_fwd"], "flash_bwd_dkdv": t["lib_bwd"],
-               "flash_bwd_dq": t["lib_bwd"]}
+    # the fastest backend by device time: its forward for the forward
+    # kernel, its backward (which computes what the pair computes) for each
+    # backward kernel
+    fwd_name = min(library, key=lambda n: library[n][0])
+    bwd_name = min(library, key=lambda n: library[n][1])
+    best = {"flash_fwd": (fwd_name, library[fwd_name][0]),
+            "flash_bwd_dkdv": (bwd_name, library[bwd_name][1]),
+            "flash_bwd_dq": (bwd_name, library[bwd_name][1])}
     replaces = {"flash_fwd": "ray_tpu/ops/attention.py:26",
                 "flash_bwd_dkdv": "ray_tpu/ops/attention.py:120",
                 "flash_bwd_dq": "ray_tpu/ops/attention.py:172"}
     timings = []
     for name in ("flash_fwd", "flash_bwd_dkdv", "flash_bwd_dq"):
         bound, bound_by = bounds[name]
+        lib_name, lib_ms = best[name]
         log(f"  time {name:<15} B=4 T=2048 H=16 D=128 causal bf16: kernel "
             f"{t[name]:.4f} ms, plain {plain[name]:.4f} ms, bound "
-            f"{bound:.4f} ms ({bound_by}), library {library[name]:.4f} ms "
-            f"[{card}]")
+            f"{bound:.4f} ms ({bound_by}), library {lib_ms:.4f} ms device "
+            f"({lib_name}) [{card}]")
         timings.append({"name": name, "route": "cuda",
                         "source": "ray_torch/ops/csrc/flash_attention.cu",
                         "replaces": replaces[name],
                         "max_abs_err": errs[name], "ms": t[name],
                         "plain_ms": plain[name], "bound_ms": bound,
-                        "bound_by": bound_by, "library_ms": library[name]})
+                        "bound_by": bound_by, "library_ms": lib_ms,
+                        "library": f"scaled_dot_product_attention/{lib_name}"})
     log(f"  time backward pair (dk/dv + dq): kernels "
         f"{t['flash_bwd_dkdv'] + t['flash_bwd_dq']:.4f} ms, bound "
         f"{pair_bound:.4f} ms ({pair_by}), plain {t['plain_bwd']:.4f} ms, "
-        f"library backward {t['lib_bwd']:.4f} ms [{card}]")
+        f"library backward {library[bwd_name][1]:.4f} ms device ({bwd_name}) "
+        f"[{card}]")
+    both = min(library, key=lambda n: library[n][2])
     log(f"  time forward + backward through autograd: ours "
         f"{t['ours_fwd_bwd']:.4f} ms, scaled_dot_product_attention "
-        f"{t['lib_fwd_bwd']:.4f} ms [{card}]")
+        f"{library[both][2]:.4f} ms ({both}) [{card}]")
     return timings
 
 
@@ -667,7 +759,14 @@ def phase_train(card: str):
     launches = dict(fa.launches)
     peak = torch.cuda.max_memory_allocated()
     # where one step's device time goes, outside the counted steps
-    device_profile(lambda: step(state, batch), top=14)
+    busy_ms, by_kernel = device_profile(lambda: step(state, batch), top=14)
+    flash_ms = {name: sum(ms for key, ms in by_kernel.items() if name in key)
+                for name in ("flash_fwd", "flash_bwd_dkdv", "flash_bwd_dq")}
+    log(f"  flash kernels in the profiled step: "
+        + ", ".join(f"{k} {v:.2f} ms" for k, v in flash_ms.items())
+        + f"; together {sum(flash_ms.values()):.2f} ms = "
+        f"{100 * sum(flash_ms.values()) / busy_ms:.1f}% of the device time "
+        f"[{card}]")
 
     step_ms = 1e3 * statistics.median(times[warmup:])
     tokens_s = TRAIN_BATCH * TRAIN_SEQ / (step_ms / 1e3)
@@ -790,8 +889,13 @@ def main() -> int:
     log(f"  kernels built in {time.perf_counter() - t0:.2f} s "
         f"({', '.join(sorted(logs)) or 'already built'})")
     for name, text in logs.items():
+        for kernel, regs, stores, loads in ptxas_summary(text):
+            log(f"  ptxas[{name}] {kernel}: {regs} registers, spill "
+                f"stores {stores} B, loads {loads} B")
+            if "_hopper" in kernel and (stores or loads):
+                raise AssertionError(f"{kernel} spills registers")
         for line in text.splitlines():
-            if "registers" in line or "spill" in line or "error" in line:
+            if "error" in line or "arning" in line:
                 log(f"  ptxas[{name}] {line.strip()}")
 
     log("[2] kernels vs plain versions")

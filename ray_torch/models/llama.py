@@ -40,6 +40,7 @@ from torch.utils.checkpoint import (
     create_selective_checkpoint_contexts,
 )
 
+from ray_torch._device import resolve_device
 from ray_torch.ops.attention import flash_attention
 
 
@@ -130,11 +131,12 @@ def param_shapes(cfg: LlamaConfig) -> dict[str, tuple[int, ...]]:
 
 
 def init_params(cfg: LlamaConfig, generator: torch.Generator,
-                device: torch.device | str = "cpu") -> dict:
+                device: torch.device | str | None = None) -> dict:
     """Random weights: N(0, 1/fan_in) drawn in fp32 from ``generator``,
-    cast to ``cfg.dtype``; norms are fp32 ones. The generator must live on
-    ``device``. Draws cannot match ``jax.random``: tests share weights
-    through ``params_from_numpy`` instead."""
+    cast to ``cfg.dtype``; norms are fp32 ones. They land on ``device``,
+    by default the generator's own. Draws cannot match ``jax.random``:
+    tests share weights through ``params_from_numpy`` instead."""
+    device = generator.device if device is None else resolve_device(device)
     flat = {}
     for path, shape in param_shapes(cfg).items():
         if path.endswith("norm"):
@@ -187,11 +189,13 @@ def _tensor_from_numpy(arr) -> torch.Tensor:
     return torch.from_numpy(np.array(arr, copy=True))
 
 
-def params_from_numpy(tree, device: torch.device | str = "cpu") -> dict:
+def params_from_numpy(tree, device: torch.device | str = "cuda") -> dict:
     """Weight bridge: a flat (``"layers/attn/wq"``) or nested dict of numpy
     arrays — e.g. ``np.asarray`` of the JAX param pytree, or an npz — to
-    the port's nested dict of tensors on ``device``. A pure dtype/device
+    the port's nested dict of tensors on ``device`` (the card unless the
+    caller names the CPU; raises without a GPU). A pure dtype/device
     transfer: shapes, layouts and bits are unchanged."""
+    device = resolve_device(device)
     flat = flatten_params(tree) if any(
         isinstance(v, dict) for v in tree.values()) else dict(tree)
     return unflatten_params({k: _tensor_from_numpy(v).to(device)
@@ -544,9 +548,11 @@ def save_params(params: dict, path: str) -> str:
 
 
 def load_params(path: str, cfg: LlamaConfig | None = None,
-                device: torch.device | str = "cpu") -> dict:
+                device: torch.device | str = "cuda") -> dict:
     """Load a ``save_params`` checkpoint (either package's) onto
-    ``device``. With a cfg, keys and shapes are validated against it."""
+    ``device``, the card unless the caller names the CPU (raises without a
+    GPU). With a cfg, keys and shapes are validated against it."""
+    device = resolve_device(device)
     if os.path.isdir(path):
         path = os.path.join(path, "params.npz")
     with np.load(path) as flat:

@@ -4,8 +4,9 @@ with a plain C interface, loaded with ``ctypes``.
 Sources live in ``ray_torch/ops/csrc/<name>.cu``. A library is built at
 first use from the sources in the checkout only, for ``sm_90a`` (Hopper;
 the ``a`` keeps ``wgmma``/``setmaxnreg`` available), into
-``ray_torch/ops/_build/`` (git-ignored), named by a hash of the source and
-the flags, so an edited source rebuilds. A failed build raises with the
+``ray_torch/ops/_build/`` (git-ignored), named by a hash of the source, the
+shared headers (``csrc/*.cuh``) and the flags, so an edited source or
+header rebuilds. A failed build raises with the
 compiler's output; nothing falls back. ``build()`` starts one ``nvcc`` per
 missing library, all at once, and waits for all of them.
 """
@@ -44,9 +45,14 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
+    """The library's path, named by a hash of its source, every shared
+    header (``csrc/*.cuh``, by name) and the flags: a header edit
+    rebuilds too."""
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + b"\0" + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
 def build(names=KERNELS) -> dict[str, str]:

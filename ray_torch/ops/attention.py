@@ -1,5 +1,6 @@
 """Flash attention for the training path: the wrappers of the three
-hand-written CUDA kernels (``csrc/flash_attention.cu``) and their plain
+hand-written CUDA kernels (``csrc/flash_attention.cu``; in bf16 the forward
+and dk/dv kernels are the Hopper ``wgmma``/TMA design) and their plain
 PyTorch versions.
 
 Counterpart of ``ray_tpu/ops/attention.py``: the same function on the same
@@ -45,8 +46,8 @@ _DTYPES = (torch.float32, torch.bfloat16)
 def _check_blocks(t_q: int, t_k: int, block_q: int, block_k: int) -> None:
     """The reference's tiling contract (``_flash_bh``): T divides into its
     blocks, a block larger than T being cut to T. The CUDA kernels tile by
-    their own 64 rows and mask the ragged tail; the contract is kept so
-    that a sequence the reference refuses is refused here too."""
+    their own 64 or 128 rows and mask the ragged tail; the contract is kept
+    so that a sequence the reference refuses is refused here too."""
     block_q = min(block_q, t_q)
     block_k = min(block_k, t_k)
     if t_q % block_q or t_k % block_k:

@@ -47,12 +47,15 @@ from ray_torch.models.llama import (
     rope_freqs,
     run_layers,
 )
+from ray_torch._device import resolve_device
 from ray_torch.ops import paged_attention as paged_ops
 
 
 def init_paged_cache(cfg: LlamaConfig, num_pages: int, page_size: int,
-                     device: torch.device | str = "cpu") -> dict:
-    """KV pool: [n_layers, n_kv_heads, num_pages, page_size, head_dim]."""
+                     device: torch.device | str = "cuda") -> dict:
+    """KV pool: [n_layers, n_kv_heads, num_pages, page_size, head_dim], on
+    the card unless the caller names the CPU (raises without a GPU)."""
+    device = resolve_device(device)
     shape = (cfg.n_layers, cfg.n_kv_heads, num_pages, page_size, cfg.head_dim)
     return {"k": torch.zeros(shape, dtype=cfg.dtype, device=device),
             "v": torch.zeros(shape, dtype=cfg.dtype, device=device)}

@@ -132,6 +132,51 @@ def test_bf16_forward_and_gradients_match_pallas():
         _close(got.grad.float(), np.asarray(ref.astype(jnp.float32)), 2e-2)
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("causal", [True, False])
+def test_ragged_multi_batch_shape_matches_pallas(causal, dtype):
+    """B=2, T=200, H=3, D=128: the CUDA kernels tile T=200 into a full and
+    a ragged 128-row tile, and B=2 and H=3 exercise the batch and head
+    strides of their tile loads. This holds the plain versions, which the
+    card compares the kernels against, at that shape. Blocks of 100 divide
+    200 (the reference refuses 128)."""
+    b, t, h, d, blk = 2, 200, 3, 128, 100
+    rs = np.random.RandomState(5)
+    q, k, v, g = (rs.randn(b, t, h, d).astype(np.float32) for _ in range(4))
+    sm = d ** -0.5
+    jdt, tdt = getattr(jnp, dtype), getattr(torch, dtype)
+    tol_fwd, tol_grad = (1e-5, 1e-4) if dtype == "float32" else (2e-2, 2e-2)
+
+    def to_bh(x):
+        return jnp.asarray(x, jdt).transpose(0, 2, 1, 3).reshape(b * h, t, d)
+
+    out_bh, lse = jattn._flash_bh(to_bh(q), to_bh(k), to_bh(v),
+                                  causal=causal, sm_scale=sm, block_q=blk,
+                                  block_k=blk, interpret=True)
+    got_out, got_lse = tattn.flash_fwd(
+        *(torch.from_numpy(x).to(tdt) for x in (q, k, v)), causal, sm)
+    want_out = np.asarray(out_bh.astype(jnp.float32)).reshape(
+        b, h, t, d).transpose(0, 2, 1, 3)
+    _close(got_out.float(), want_out, tol_fwd)
+    _close(got_lse, np.asarray(lse).reshape(b, h, t), tol_fwd)
+
+    def jloss(q, k, v):
+        o = jattn.flash_attention(q, k, v, causal=causal, block_q=blk,
+                                  block_k=blk, interpret=True)
+        return jnp.sum(o.astype(jnp.float32) * jnp.asarray(g))
+
+    want = jax.grad(jloss, argnums=(0, 1, 2))(
+        *(jnp.asarray(x, jdt) for x in (q, k, v)))
+    leaves = [torch.from_numpy(x).to(tdt).requires_grad_() for x in (q, k, v)]
+    out = tattn.flash_attention(*leaves, causal=causal, block_q=blk,
+                                block_k=blk)
+    (out.float() * torch.from_numpy(g)).sum().backward()
+    for got, ref in zip(leaves, want):
+        assert got.grad.dtype == tdt
+        _close(got.grad.float(), np.asarray(ref.astype(jnp.float32)),
+               tol_grad)
+
+
 def test_plain_versions_agree_with_the_dense_reference():
     """The flash numerics (fp32 scores) and the dense path's (scores
     rounded to q's dtype) coincide in fp32; reference_attention matches

@@ -36,9 +36,9 @@ class _Pair:
         self.tcfg = tllama.llama_tiny(vocab_size=512)
         self.jp = jllama.init_params(jax.random.PRNGKey(0), self.jcfg)
         self.tp = tllama.params_from_numpy(
-            jax.tree_util.tree_map(np.asarray, self.jp))
+            jax.tree_util.tree_map(np.asarray, self.jp), "cpu")
         self.jkv = jkv.init_paged_cache(self.jcfg, NUM_PAGES, PAGE)
-        self.tkv = tkv.init_paged_cache(self.tcfg, NUM_PAGES, PAGE)
+        self.tkv = tkv.init_paged_cache(self.tcfg, NUM_PAGES, PAGE, "cpu")
 
     def check_pools(self):
         for name in ("k", "v"):
@@ -154,7 +154,7 @@ def test_page_raw_nbytes_matches_jax():
                        (jllama.llama3_1b(), tllama.llama3_1b())):
         assert tkv.page_raw_nbytes(tcfg, 128) == jkv.page_raw_nbytes(
             jcfg, 128)
-    pool = tkv.init_paged_cache(tllama.llama_tiny(), 5, PAGE)
+    pool = tkv.init_paged_cache(tllama.llama_tiny(), 5, PAGE, "cpu")
     assert pool["k"].shape == (2, 2, 5, PAGE, 16)
 
 

@@ -38,7 +38,7 @@ def test_forward_logits_match_jax():
         np.int32)
     tokens[:, 0] = 256  # the byte tokenizer's BOS: past the 256-row table
     want = np.asarray(jllama.forward(params, jnp.asarray(tokens), jcfg))
-    tparams = tllama.params_from_numpy(_np_tree(params))
+    tparams = tllama.params_from_numpy(_np_tree(params), "cpu")
     got = tllama.forward(tparams, torch.from_numpy(tokens).long(), tcfg)
     assert got.dtype == torch.float32 and got.shape == want.shape
     np.testing.assert_allclose(got.numpy(), want, rtol=1e-4, atol=1e-4)
@@ -93,7 +93,7 @@ def test_params_from_numpy_bf16_bits_exact():
     reinterprets its 16-bit patterns, so every bit survives."""
     jcfg = jllama.llama_tiny(dtype=jnp.bfloat16)
     params = jllama.init_params(jax.random.PRNGKey(3), jcfg)
-    tparams = tllama.params_from_numpy(_np_tree(params))
+    tparams = tllama.params_from_numpy(_np_tree(params), "cpu")
     for key, arr in tllama.flatten_params(_np_tree(params)).items():
         t = tllama.flatten_params(tparams)[key]
         if arr.dtype.name == "bfloat16":
@@ -115,8 +115,8 @@ def test_npz_round_trip_both_directions(tmp_path, dtype):
     tcfg = tllama.llama_tiny(dtype=tdt)
     params = jllama.init_params(jax.random.PRNGKey(4), jcfg)
     path = jllama.save_params(params, str(tmp_path / "jax"))
-    loaded = tllama.load_params(path, tcfg)
-    direct = tllama.params_from_numpy(_np_tree(params))
+    loaded = tllama.load_params(path, tcfg, "cpu")
+    direct = tllama.params_from_numpy(_np_tree(params), "cpu")
     flat_l = tllama.flatten_params(loaded)
     for key, t in tllama.flatten_params(direct).items():
         assert flat_l[key].dtype == t.dtype
@@ -125,7 +125,7 @@ def test_npz_round_trip_both_directions(tmp_path, dtype):
     assert flat_l["final_norm"].dtype == torch.float32
 
     again = tllama.load_params(
-        tllama.save_params(loaded, str(tmp_path / "port.npz")), tcfg)
+        tllama.save_params(loaded, str(tmp_path / "port.npz")), tcfg, "cpu")
     for key, t in tllama.flatten_params(again).items():
         ref = flat_l[key]
         assert t.dtype == ref.dtype
@@ -136,4 +136,28 @@ def test_load_params_rejects_mismatched_config(tmp_path):
     params = jllama.init_params(jax.random.PRNGKey(0), jllama.llama_tiny())
     path = jllama.save_params(params, str(tmp_path))
     with pytest.raises(ValueError, match="does not match config"):
-        tllama.load_params(path, tllama.llama_tiny(dim=128))
+        tllama.load_params(path, tllama.llama_tiny(dim=128), "cpu")
+
+
+def test_device_defaults_are_the_card(tmp_path):
+    """Loading weights or building a pool without naming a device puts them
+    on the card; without a GPU that raises rather than running on the CPU.
+    init_params follows its generator."""
+    from ray_torch.serve.llm import kv_cache as tkv
+    cfg = tllama.llama_tiny()
+    tree = {"final_norm": np.ones(64, np.float32)}
+    path = tllama.save_params(tllama.params_from_numpy(tree, "cpu"),
+                              str(tmp_path / "p.npz"))
+    calls = (lambda: tllama.params_from_numpy(tree),
+             lambda: tllama.load_params(path),
+             lambda: tkv.init_paged_cache(cfg, 2, 8))
+    for call in calls:
+        if torch.cuda.is_available():
+            leaf = tllama.flatten_params(call())
+            assert all(t.is_cuda for t in leaf.values())
+        else:
+            with pytest.raises(RuntimeError, match="no CUDA device"):
+                call()
+    gen = torch.Generator().manual_seed(0)
+    flat = tllama.flatten_params(tllama.init_params(cfg, gen))
+    assert all(t.device.type == "cpu" for t in flat.values())

@@ -55,7 +55,7 @@ def _close(got, want, tol):
 
 
 def _torch_loss_and_grads(cfg, tokens=TOKENS):
-    params = tllama.params_from_numpy(_np_tree(_jax_params()))
+    params = tllama.params_from_numpy(_np_tree(_jax_params()), "cpu")
     flat = tllama.flatten_params(params)
     for p in flat.values():
         p.requires_grad_(True)
@@ -258,7 +258,7 @@ def test_train_steps_match_jax(name):
     jparams, jmetrics = _jax_steps(name, 3)
     opt = tspmd.default_optimizer(warmup_steps=1, decay_steps=10, name=name)
     state = tspmd.create_state(
-        tllama.params_from_numpy(_np_tree(_jax_params())), opt)
+        tllama.params_from_numpy(_np_tree(_jax_params()), "cpu"), opt)
     step = tspmd.make_train_step(
         functools.partial(tllama.loss_fn, cfg=tllama.llama_tiny()), opt)
     batch = tspmd.shard_batch({"tokens": TOKENS}, "cpu")
@@ -285,7 +285,7 @@ def test_train_steps_match_jax(name):
 
 
 def test_donate_updates_in_place_and_keep_false_leaves_state():
-    params = tllama.params_from_numpy(_np_tree(_jax_params()))
+    params = tllama.params_from_numpy(_np_tree(_jax_params()), "cpu")
     before = {k: v.clone() for k, v in tllama.flatten_params(params).items()}
     opt = tspmd.default_optimizer(warmup_steps=0, decay_steps=10)
     loss = functools.partial(tllama.loss_fn, cfg=tllama.llama_tiny())
