@@ -8,33 +8,41 @@ Phases, each of which raises on failure (nothing is caught and carried on):
 1. device: the card's name and power limit; the CUDA kernels built from the
    sources in this checkout (one ``nvcc`` per source, started together),
    each kernel's registers and spills (a Hopper kernel that spills fails);
-2. every kernel against its plain PyTorch version on the card, at the shapes
-   the main path gives it, in bf16 and fp32, then timed (CUDA events) beside
-   its bound and the plain version's time;
+2. both paged-attention kernels against their plain PyTorch version on the
+   card, at the shapes the main path gives them, in bf16 and fp32, each
+   launch checked to take the kernel ``paged_attention.route`` plans (bf16
+   decode and verify: ``paged_decode_hopper``; the chunk path, fp32 and a
+   long span: ``paged_attention_kernel``), then timed (CUDA events, and
+   device time by the profiler) beside the bound and the plain version;
 3. greedy identity: ``LLMEngine`` on llama_tiny in fp32 through the kernel
    and through the gather path must produce identical tokens;
 4. the serving path at full width: ``LLMServer`` serving llama3_1b (bf16,
    random weights from a seeded generator) at the serve bench's engine
-   settings answers completions, some concurrent, through the kernel; every
-   kernel's launch counter is zeroed just before and read just after. Then
-   one decode step's logits through the kernel and through the gather path;
+   settings answers completions, some concurrent, through the kernels;
+   every launch counter (in all and per kernel) is zeroed just before and
+   read just after, and both kernels must have run. Then one decode step's
+   logits through the kernel (bf16: the decode route) and through the
+   gather path;
 5. the three flash-attention kernels against their plain versions on the
    card (bf16 and fp32, causal and not, at the training shapes, a small
    D=64 one and a ragged T=200 with B=2, H=3 at D=128 and D=32; two
    backward runs bit-identical), then timed beside their bounds, the plain
    versions and ``scaled_dot_product_attention`` under each backend that
-   takes the shape (the fastest is the ``library_ms`` yardstick);
+   takes the shape (the fastest is the ``library_ms`` yardstick); in bf16
+   all three are the Hopper kernels (``attention.kernel_name``);
 6. the training path at full width: ``ray_torch.train.spmd`` trains
    llama3_1b (the repo's bench recipe: bf16, "dots" remat, one 2048-wide
    CE chunk kept, flash attention, adafactor, batch 4 x 2048) for 3 warmup
    and 5 timed steps from seeded random weights; every flash counter is
    zeroed just before and read just after; one profiled step gives the
-   flash kernels' share of the device time;
+   flash kernels' share of the device time and must have run the Hopper
+   kernel of each op and no other;
 7. the flash kernels against the dense path end to end: llama_tiny fp32
    (grads and three train steps) and one llama3_1b bf16 step.
 
-Prints numbers on earlier lines, then a ``{"kernels": [...]}`` line, then
-the card's name and power limit, and as its last line
+Prints numbers on earlier lines, then a ``{"kernels": [...]}`` line (each
+row names the CUDA kernel it timed under ``kernel``), then the card's name
+and power limit, and as its last line
 ``{"ok": true, "device": {...}}``. Without a CUDA device it exits non-zero
 and prints no result.
 """
@@ -191,30 +199,66 @@ def phase_kernels(card: str):
         diff = (got.float() - want.float()).abs()
         err = float(diff.max())
         ok = bool((diff <= TOL[dtype] * (1 + want.float().abs())).all())
-        log(f"  {name:<34} {str(dtype):<15} max_abs_err={err:.3e} "
+        log(f"  {name:<44} {str(dtype):<15} max_abs_err={err:.3e} "
             f"(tol {TOL[dtype]:g}) {'ok' if ok else 'FAIL'}")
         if not (ok and torch.isfinite(got).all()):
             raise AssertionError(f"paged attention kernel disagrees with "
                                  f"its plain version: {name} {dtype}")
         return err
 
+    def routed(c, call):
+        """call(), which must make one launch, and the kernel it took; it
+        must be the one pa.route plans for these shapes."""
+        before = dict(pa.launches)
+        got = call()
+        took = [k for k, v in pa.launches.items() if v != before[k]]
+        b, t, h, d = c["q"].shape
+        hkv, _, page, _ = c["k"].shape
+        want = pa.route((h // hkv) * t, d, page, c["pt"].shape[1],
+                        c["q"].dtype)
+        if took != [want] or pa.launches[want] != before[want] + 1:
+            raise AssertionError(f"launch took {took}, planned {want}")
+        return got, want
+
+    # (case, the kernel it must take): bf16 decode and verify take the
+    # decode route; the chunk path, fp32 and the long span the general one
+    routes = {}
     cases = {}
     errs = {}
     for dtype in (torch.bfloat16, torch.float32):
         for b, seed in ((1, 1), (32, 2)):
             c = paged_case(b, 1, dtype, seed=seed)
-            got = pa.paged_decode_attention(
-                c["q"][:, 0], c["k"], c["v"], c["pt"], c["base"],
-                sm_scale=c["sm"])
+            got, routes[f"decode B={b}", dtype] = routed(
+                c, lambda c=c: pa.paged_decode_attention(
+                    c["q"][:, 0], c["k"], c["v"], c["pt"], c["base"],
+                    sm_scale=c["sm"]))
             want = pa.paged_attention_reference(
                 c["q"], c["k"], c["v"], c["pt"], c["base"],
                 torch.full_like(c["base"], 16 * 128), sm_scale=c["sm"])[:, 0]
             errs[("decode", b, dtype)] = check(f"decode B={b}", got, want,
                                                dtype)
             cases[("decode", b, dtype)] = c
+        # a row with no live key (limit 0: uniform over the table span)
+        # and spans that end mid-page and mid-tile
+        c = paged_case(4, 1, dtype, seed=6,
+                       base=torch.tensor([10, 200, 1000, 2040],
+                                         device="cuda"),
+                       limit=torch.tensor([0, 130, 1001, 2048],
+                                          device="cuda"))
+        got, routes["decode B=4 limit 0, mid-page ends", dtype] = routed(
+            c, lambda c=c: pa.paged_attention(
+                c["q"], c["k"], c["v"], c["pt"], c["base"], c["limit"],
+                sm_scale=c["sm"]))
+        want = pa.paged_attention_reference(
+            c["q"], c["k"], c["v"], c["pt"], c["base"], c["limit"],
+            sm_scale=c["sm"])
+        errs[("decode", 4, dtype)] = check(
+            "decode B=4 limit 0, mid-page ends", got, want, dtype)
         c = paged_case(8, 5, dtype, seed=3)
-        got = pa.paged_verify_attention(c["q"], c["k"], c["v"], c["pt"],
-                                        c["base"], sm_scale=c["sm"])
+        got, routes["verify B=8 T=5", dtype] = routed(
+            c, lambda c=c: pa.paged_verify_attention(
+                c["q"], c["k"], c["v"], c["pt"], c["base"],
+                sm_scale=c["sm"]))
         want = pa.paged_attention_reference(
             c["q"], c["k"], c["v"], c["pt"], c["base"],
             torch.full_like(c["base"], 16 * 128), sm_scale=c["sm"])
@@ -222,29 +266,46 @@ def phase_kernels(card: str):
         base = torch.tensor([512], device="cuda")
         limit = torch.tensor([900], device="cuda")
         c = paged_case(1, 512, dtype, seed=4, base=base, limit=limit)
-        got = pa.paged_chunk_attention(c["q"], c["k"], c["v"], c["pt"][0],
-                                       512, 900, sm_scale=c["sm"])
+        got, routes["chunk C=512", dtype] = routed(
+            c, lambda c=c: pa.paged_chunk_attention(
+                c["q"], c["k"], c["v"], c["pt"][0], 512, 900,
+                sm_scale=c["sm"]))
         want = pa.paged_attention_reference(
             c["q"], c["k"], c["v"], c["pt"], c["base"], c["limit"],
             sm_scale=c["sm"])
         errs[("chunk", 512, dtype)] = check("chunk C=512 start=512 len=900",
                                             got, want, dtype)
         cases[("chunk", 512, dtype)] = c
-        # the same kernel on its recompute path (a table span too long to
-        # keep even one row's scores in shared memory), at D=256
+        # the general kernel on its recompute path (a table span too long
+        # to keep even one row's scores in shared memory), at D=256
         c = paged_case(2, 3, dtype, seed=5, d=256, max_pages=336,
                        hkv=2, n_rep=4)
-        got = pa.paged_attention(c["q"], c["k"], c["v"], c["pt"], c["base"],
-                                 c["limit"], sm_scale=c["sm"])
+        got, routes["recompute D=256", dtype] = routed(
+            c, lambda c=c: pa.paged_attention(
+                c["q"], c["k"], c["v"], c["pt"], c["base"], c["limit"],
+                sm_scale=c["sm"]))
         want = pa.paged_attention_reference(
             c["q"], c["k"], c["v"], c["pt"], c["base"], c["limit"],
             sm_scale=c["sm"])
         assert not pa.launch_plan(12, 256, 336 * 128)[1]
         check("recompute path D=256 span=43008", got, want, dtype)
+    decode_cases = ("decode B=1", "decode B=32",
+                    "decode B=4 limit 0, mid-page ends", "verify B=8 T=5")
+    for (name, dtype), kernel in routes.items():
+        want = ("paged_decode_hopper" if dtype == torch.bfloat16
+                and name in decode_cases else "paged_attention_kernel")
+        if kernel != want:
+            raise AssertionError(f"{name} {dtype} took {kernel}, not {want}")
+    log("  routes: bf16 decode and verify -> paged_decode_hopper; chunk, "
+        "fp32 and the D=256 recompute case -> paged_attention_kernel")
 
     timings = []
-    for kind, key in (("decode", ("decode", 32, torch.bfloat16)),
-                      ("chunk", ("chunk", 512, torch.bfloat16))):
+    for kind, key, err_keys in (
+            ("decode", ("decode", 32, torch.bfloat16),
+             [("decode", b, torch.bfloat16) for b in (1, 4, 32)]
+             + [("verify", 8, torch.bfloat16)]),
+            ("chunk", ("chunk", 512, torch.bfloat16),
+             [("chunk", 512, torch.bfloat16)])):
         c = cases[key]
         limit = c["limit"] if kind == "chunk" else torch.full_like(
             c["base"], 16 * 128)
@@ -258,20 +319,24 @@ def phase_kernels(card: str):
                 c["q"], c["k"], c["v"], c["pt"], c["base"], limit,
                 sm_scale=c["sm"])
 
+        name = routed(c, kernel)[1]
         bc = dict(c, limit=limit)
         bound, bound_by = paged_bound(bc)
         ms, plain_ms = time_ms(kernel), time_ms(plain)
+        dev_ms = device_ms(kernel)
         live = int(torch.minimum(c["base"] + c["q"].shape[1],
                                  limit).sum())
         log(f"  time {kind:<6} B={c['q'].shape[0]} T={c['q'].shape[1]} "
-            f"bf16 live_keys={live}: kernel {ms:.4f} ms, plain "
-            f"{plain_ms:.4f} ms, bound {bound:.4f} ms ({bound_by}); "
-            "library: none (no single PyTorch call attends through a "
-            f"page table) [{card}]")
+            f"bf16 live_keys={live} ({name}): kernel {ms:.4f} ms (device "
+            f"{dev_ms:.4f}), plain {plain_ms:.4f} ms, bound {bound:.4f} ms "
+            f"({bound_by}); library: none (no single PyTorch call attends "
+            f"through a page table) [{card}]")
         timings.append({"name": f"paged_attention/{kind}", "route": "cuda",
+                        "kernel": name,
                         "source": "ray_torch/ops/csrc/paged_attention.cu",
                         "replaces": "ray_tpu/ops/paged_attention.py:77",
-                        "max_abs_err": errs[key], "ms": ms,
+                        "max_abs_err": max(errs[k] for k in err_keys),
+                        "ms": ms, "device_ms": dev_ms,
                         "plain_ms": plain_ms, "bound_ms": bound,
                         "bound_by": bound_by, "library_ms": None,
                         "library": None})
@@ -374,7 +439,8 @@ def phase_serve(card: str):
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    pa.launches = 0                         # count the main path only
+    for name in pa.launches:                # count the main path only
+        pa.launches[name] = 0
     t0 = time.perf_counter()
     srv = LLMServer(cfg, rng_seed=0)
     setup_s = time.perf_counter() - t0
@@ -392,11 +458,19 @@ def phase_serve(card: str):
                 results += serve(wave)
                 walls.append(time.perf_counter() - t0)
             # where a wave's time goes, outside the timed waves
-            device_profile(lambda: results.extend(serve(wave3)))
+            busy_ms, by_kernel = device_profile(
+                lambda: results.extend(serve(wave3)))
         stats = srv.engine_stats()
     finally:
         srv.shutdown()
-    launches = pa.launches
+    launches = dict(pa.launches)
+    paged_ms = {name: sum(ms for key, ms in by_kernel.items() if name in key)
+                for name in launches}
+    log(f"  paged kernels in the profiled wave: "
+        + ", ".join(f"{k} {v:.2f} ms" for k, v in paged_ms.items())
+        + f"; together {sum(paged_ms.values()):.2f} ms = "
+        f"{100 * sum(paged_ms.values()) / busy_ms:.1f}% of the device time "
+        f"[{card}]")
     torch.cuda.synchronize()
     peak = torch.cuda.max_memory_allocated()
 
@@ -410,8 +484,11 @@ def phase_serve(card: str):
                 "prefix_hits"):
         if not stats[key] > 0:
             raise AssertionError(f"engine_stats {key}={stats[key]}")
-    if launches <= 0:
-        raise AssertionError("the main path never launched the kernel")
+    if not all(v > 0 for v in launches.values()):
+        raise AssertionError(f"a paged kernel was not launched on the main "
+                             f"path: {launches}")
+    if not paged_ms["paged_decode_hopper"] > 0:
+        raise AssertionError("the profiled wave ran no paged_decode_hopper")
     ttfts = [r["ray_tpu"]["ttft_s"] for r in results[:10]]
     decode_rates = [(max_tokens - 1)
                     / max(r["ray_tpu"]["latency_s"] - ttft, 1e-9)
@@ -435,9 +512,10 @@ def phase_serve(card: str):
         f"{stats['phase_chunk_prefill_p50_ms']} ms")
     log(f"  peak torch.cuda.max_memory_allocated {peak / 2**30:.3f} GiB "
         f"[{card}]")
-    log(f"  kernel launches on the main path: {launches}; engine "
-        f"decode blocks {stats['attn_decode_dispatches']}, chunks "
-        f"{stats['attn_chunk_dispatches']}, prefix hits "
+    log(f"  kernel launches on the main path: "
+        + ", ".join(f"{k} {v}" for k, v in launches.items())
+        + f"; engine decode blocks {stats['attn_decode_dispatches']}, "
+        f"chunks {stats['attn_chunk_dispatches']}, prefix hits "
         f"{stats['prefix_hits']}, steps {stats['steps']}")
     return srv.engine.params, launches
 
@@ -460,6 +538,7 @@ def phase_logits(params):
     - fp32, tol 1e-3: attention outputs agree to ~1e-6 (phase 2), and 16
       layers of random weights amplify that by far less than 1e3."""
     from ray_torch.models import llama
+    from ray_torch.ops import paged_attention as pa
     from ray_torch.serve.llm import kv_cache as kvc
 
     page, max_pages = 128, 8
@@ -483,11 +562,18 @@ def phase_logits(params):
             first.append(logits.argmax())
         tokens = torch.stack(first)
         out = {}
+        before = dict(pa.launches)
         for kernel in ("cuda", "gather"):
             kv = {k: v.clone() for k, v in pool.items()}
             out[kernel], _ = kvc.paged_decode_step(
                 weights, kv, tables, seq, tokens, mcfg, page, kernel)
         torch.cuda.synchronize()
+        took = {k: v - before[k] for k, v in pa.launches.items()
+                if v != before[k]}
+        want = ("paged_decode_hopper" if dtype == torch.bfloat16
+                else "paged_attention_kernel")
+        if took != {want: mcfg.n_layers}:
+            raise AssertionError(f"{dtype} decode step launched {took}")
         diff = (out["cuda"] - out["gather"]).abs()
         ok = bool((diff <= tol * (1 + out["gather"].abs())).all())
         same = int((out["cuda"].argmax(-1) == out["gather"].argmax(-1))
@@ -495,7 +581,8 @@ def phase_logits(params):
         log(f"  decode-step logits {str(dtype):<14} 4 slots at {lens} "
             f"tokens: max |kernel - gather| {float(diff.max()):.4e} (max "
             f"|logit| {float(out['gather'].abs().max()):.3f}, tol {tol} * "
-            f"(1 + |ref|)); argmax equal in {same}/4 rows")
+            f"(1 + |ref|)); argmax equal in {same}/4 rows; {want} x "
+            f"{mcfg.n_layers}")
         if not ok:
             raise AssertionError(f"kernel and gather decode logits disagree "
                                  f"in {dtype}")
@@ -683,23 +770,33 @@ def phase_flash(card: str):
     replaces = {"flash_fwd": "ray_tpu/ops/attention.py:26",
                 "flash_bwd_dkdv": "ray_tpu/ops/attention.py:120",
                 "flash_bwd_dq": "ray_tpu/ops/attention.py:172"}
+    dev = {
+        "flash_fwd": device_ms(lambda: fa.flash_fwd(q, k, v, True, sm)),
+        "flash_bwd_dkdv": device_ms(lambda: fa.flash_bwd_dkdv(
+            q, k, v, do, lse, delta, True, sm)),
+        "flash_bwd_dq": device_ms(lambda: fa.flash_bwd_dq(
+            q, k, v, do, lse, delta, True, sm)),
+    }
     timings = []
     for name in ("flash_fwd", "flash_bwd_dkdv", "flash_bwd_dq"):
         bound, bound_by = bounds[name]
         lib_name, lib_ms = best[name]
-        log(f"  time {name:<15} B=4 T=2048 H=16 D=128 causal bf16: kernel "
-            f"{t[name]:.4f} ms, plain {plain[name]:.4f} ms, bound "
-            f"{bound:.4f} ms ({bound_by}), library {lib_ms:.4f} ms device "
-            f"({lib_name}) [{card}]")
-        timings.append({"name": name, "route": "cuda",
+        kernel = fa.kernel_name(name, torch.bfloat16)
+        log(f"  time {name:<15} B=4 T=2048 H=16 D=128 causal bf16 "
+            f"({kernel}): kernel {t[name]:.4f} ms (device {dev[name]:.4f}), "
+            f"plain {plain[name]:.4f} ms, bound {bound:.4f} ms ({bound_by}),"
+            f" library {lib_ms:.4f} ms device ({lib_name}) [{card}]")
+        timings.append({"name": name, "route": "cuda", "kernel": kernel,
                         "source": "ray_torch/ops/csrc/flash_attention.cu",
                         "replaces": replaces[name],
                         "max_abs_err": errs[name], "ms": t[name],
+                        "device_ms": dev[name],
                         "plain_ms": plain[name], "bound_ms": bound,
                         "bound_by": bound_by, "library_ms": lib_ms,
                         "library": f"scaled_dot_product_attention/{lib_name}"})
     log(f"  time backward pair (dk/dv + dq): kernels "
-        f"{t['flash_bwd_dkdv'] + t['flash_bwd_dq']:.4f} ms, bound "
+        f"{t['flash_bwd_dkdv'] + t['flash_bwd_dq']:.4f} ms (device "
+        f"{dev['flash_bwd_dkdv'] + dev['flash_bwd_dq']:.4f}), bound "
         f"{pair_bound:.4f} ms ({pair_by}), plain {t['plain_bwd']:.4f} ms, "
         f"library backward {library[bwd_name][1]:.4f} ms device ({bwd_name}) "
         f"[{card}]")
@@ -762,6 +859,12 @@ def phase_train(card: str):
     busy_ms, by_kernel = device_profile(lambda: step(state, batch), top=14)
     flash_ms = {name: sum(ms for key, ms in by_kernel.items() if name in key)
                 for name in ("flash_fwd", "flash_bwd_dkdv", "flash_bwd_dq")}
+    # the bf16 step runs the Hopper kernel of each op and no other
+    for name in flash_ms:
+        ran = sorted({m for key in by_kernel
+                      for m in re.findall(rf"{name}_(?:hopper|kernel)", key)})
+        if ran != [fa.kernel_name(name, torch.bfloat16)]:
+            raise AssertionError(f"the profiled step ran {ran} for {name}")
     log(f"  flash kernels in the profiled step: "
         + ", ".join(f"{k} {v:.2f} ms" for k, v in flash_ms.items())
         + f"; together {sum(flash_ms.values()):.2f} ms = "
@@ -914,7 +1017,7 @@ def main() -> int:
     phase_logits(params)
     log(f"  phase 4: {time.perf_counter() - t0:.1f} s")
     for k in kernels:
-        k["launches"] = launches
+        k["launches"] = launches[k["kernel"]]
     del params
     torch.cuda.empty_cache()
 

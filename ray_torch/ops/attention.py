@@ -1,7 +1,7 @@
 """Flash attention for the training path: the wrappers of the three
-hand-written CUDA kernels (``csrc/flash_attention.cu``; in bf16 the forward
-and dk/dv kernels are the Hopper ``wgmma``/TMA design) and their plain
-PyTorch versions.
+hand-written CUDA kernels (``csrc/flash_attention.cu``; in bf16 all three
+are the Hopper ``wgmma``/TMA design, in fp32 FMA kernels: see
+:func:`kernel_name`) and their plain PyTorch versions.
 
 Counterpart of ``ray_tpu/ops/attention.py``: the same function on the same
 ``[B, T, H, D]`` layout (heads already GQA-expanded), the same saved
@@ -120,6 +120,20 @@ def reference_attention(q, k, v, *, causal: bool = True,
 # ---------------------------------------------------------------------------
 # kernel launches
 # ---------------------------------------------------------------------------
+
+def kernel_name(op: str, dtype: torch.dtype) -> str:
+    """The CUDA kernel a launch of ``op`` (``flash_fwd``, ``flash_bwd_dkdv``
+    or ``flash_bwd_dq``) takes for inputs of ``dtype``: the Hopper design
+    (``wgmma`` fed by TMA) in bf16, the FMA kernel in fp32, whose products
+    ``wgmma`` would round to TF32. The choice is made in
+    ``csrc/flash_attention.cu::launch`` by the same rule."""
+    if op not in launches:
+        raise ValueError(f"unknown flash op {op!r}")
+    if dtype not in _DTYPES:
+        raise ValueError(f"flash attention kernels take float32 or bfloat16, "
+                         f"got {dtype}")
+    return f"{op}_hopper" if dtype == torch.bfloat16 else f"{op}_kernel"
+
 
 _ARGTYPES = {
     # q, k, v, out, lse

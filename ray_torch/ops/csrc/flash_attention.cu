@@ -7,7 +7,7 @@
 //       <- _flash_kernel (:26, launched by _flash_bh)
 //   flash_bwd_dkdv_hopper (bf16), flash_bwd_dkdv_kernel (fp32)
 //       <- _flash_bwd_dkdv_kernel (:120, _flash_bwd_bh)
-//   flash_bwd_dq_kernel (bf16 and fp32)
+//   flash_bwd_dq_hopper (bf16), flash_bwd_dq_kernel (fp32)
 //       <- _flash_bwd_dq_kernel (:172, _flash_bwd_bh)
 // Layouts: q, k, v, out, dout, dq, dk, dv are [B, T, H, D] (heads already
 // GQA-expanded), lse and delta [B, H, T] fp32. The causal mask keeps key
@@ -19,11 +19,11 @@
 // m + log(l) with l > 0 guarded; in the backward p = exp(s - lse),
 // ds = p * (dO.V^T - delta) * scale rounded to the input dtype before ds.K
 // and ds^T.Q; every output cast once at the end. bf16 products run on the
-// tensor cores with bf16 inputs and fp32 accumulation (wgmma in the
-// forward and dk/dv kernels, mma.sync.m16n8k16 in dq), which computes
-// exactly these roundings; the Hopper kernels take exp as 2^x of scores in
-// log2 units (ex2.approx, ~2^-22 relative). fp32 runs the same products as
-// FMAs (wgmma's fp32 path is TF32, which would round the inputs).
+// tensor cores (wgmma) with bf16 inputs and fp32 accumulation, which
+// computes exactly these roundings; the Hopper kernels take exp as 2^x of
+// scores in log2 units (ex2.approx, ~2^-22 relative). fp32 runs the same
+// products as FMAs (wgmma's fp32 path is TF32, which would round the
+// inputs).
 //
 // Bound on an H100 at the training shapes (B=4, H=16, T=2048, D=128,
 // causal, bf16): operations. The forward does 2 products of 2 D flop per
@@ -33,24 +33,28 @@
 // (0.104 ms).
 //
 // What the design does about that bound:
-//  - bf16 forward and dk/dv (flash_fwd_hopper, flash_bwd_dkdv_hopper, every
-//    D of 16, 32, 64, 128): three warpgroups a block. One producer thread
-//    keeps TMA tile loads in flight through a 2-stage ring with full/empty
-//    mbarriers (setmaxnreg hands its registers to the consumers); two
-//    consumer warpgroups of 64 rows each run wgmma m64nNk16 on the tiles
-//    that have arrived. Scores come from shared memory with both operands
-//    K-major; the probability tile (P in the forward, P^T and dS^T in
-//    dk/dv) is rounded to bf16 in registers and is the register A operand
-//    of the next product, whose B operand (V, dO, Q) is read MN-major with
-//    wgmma's transpose bit. Nothing round-trips through shared memory and
-//    no operand is assembled from scalar loads. Forward: one block per
+//  - bf16 (flash_fwd_hopper, flash_bwd_dkdv_hopper, flash_bwd_dq_hopper,
+//    every D of 16, 32, 64, 128): three warpgroups a block. One producer
+//    thread keeps TMA tile loads in flight through a 2-stage ring with
+//    full/empty mbarriers (setmaxnreg hands its registers to the
+//    consumers); two consumer warpgroups of 64 rows each run wgmma
+//    m64nNk16 on the tiles that have arrived. Scores come from shared
+//    memory with both operands K-major; the probability tile (P in the
+//    forward, P^T and dS^T in dk/dv, dS in dq) is rounded to bf16 in
+//    registers and is the register A operand of the next product, whose B
+//    operand (V, dO, Q, K) is read MN-major with wgmma's transpose bit.
+//    Nothing round-trips through shared memory and no operand is
+//    assembled from scalar loads. Forward: one block per
 //    (b*h, 128-row query tile) over 128-key tiles up to the diagonal.
 //    dk/dv: one block per (b*h, 128-key tile), K and V resident, over
 //    64-row Q/dO tiles (with their LSE and delta rows) from the diagonal on.
+//    dq: one block per (b*h, 128-row query tile), Q and dO resident, over
+//    64-key K/V tiles up to the diagonal (a 64-key tile keeps the S and dP
+//    accumulators at 32 registers each beside dQ's 64 at D=128).
 //    The TMA maps are 4-d over [B, T, H, D] (hopper.cuh), so rows past T
 //    read as zeros and never from the next batch;
-//  - dq (and fp32 everywhere): mma.sync / FMA on 16-row warp tiles (4
-//    warps, 64 rows a block) fed from shared memory by synchronous loads;
+//  - fp32: FMAs on 16-row warp tiles (4 warps, 64 rows a block) fed from
+//    shared memory by synchronous loads;
 //  - Hopper blocks run in no order, so nothing carries across blocks as the
 //    TPU grid carried VMEM scratch: each block loops over the other axis
 //    itself; fully masked tiles are skipped (causal work is T(T+1)/2 pairs,
@@ -124,59 +128,12 @@ __device__ __forceinline__ void load_stats(const float* __restrict__ src,
     dst[i] = (row0 + i < t_len) ? src[row0 + i] : 0.f;
 }
 
-__device__ __forceinline__ uint32_t ld32(const bf16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-__device__ __forceinline__ uint32_t pack(bf16 lo, bf16 hi) {
-  return (uint32_t)__bfloat16_as_ushort(lo)
-         | ((uint32_t)__bfloat16_as_ushort(hi) << 16);
-}
-
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         const uint32_t (&b)[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// One warp's product over its 16 rows: c(r, n) += sum_k A(r, k) B(k, n),
-// n < 8 * NT, k < K, from shared memory. A(r, k) = A[r * lda + k];
-// B(k, n) = kTransB ? B[n * ldb + k] : B[k * ldb + n].
-// c is the m16n8 accumulator fragment of each 8-column tile nt: lane
+// One warp's product over its 16 rows in fp32 FMAs: c(r, n) += sum_k
+// A(r, k) B(k, n), n < 8 * NT, k < K, from shared memory. A(r, k) =
+// A[r * lda + k]; B(k, n) = kTransB ? B[n * ldb + k] : B[k * ldb + n].
+// c holds the m16n8 fragment layout of each 8-column tile nt: lane
 // (g = lane / 4, t = lane % 4) holds c[nt][0..1] at row g, columns
 // nt * 8 + 2t + {0, 1}, and c[nt][2..3] at row g + 8 (see frag_row/frag_col).
-template <int NT, int K, bool kTransB>
-__device__ __forceinline__ void warp_mm(float (&c)[NT][4], const bf16* A,
-                                        int lda, const bf16* B, int ldb) {
-  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-#pragma unroll
-  for (int k0 = 0; k0 < K; k0 += 16) {
-    uint32_t a[4];
-    a[0] = ld32(A + g * lda + k0 + 2 * t);
-    a[1] = ld32(A + (g + 8) * lda + k0 + 2 * t);
-    a[2] = ld32(A + g * lda + k0 + 2 * t + 8);
-    a[3] = ld32(A + (g + 8) * lda + k0 + 2 * t + 8);
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt) {
-      const int n = nt * 8 + g;
-      uint32_t b[2];
-      if (kTransB) {
-        b[0] = ld32(B + n * ldb + k0 + 2 * t);
-        b[1] = ld32(B + n * ldb + k0 + 2 * t + 8);
-      } else {
-        b[0] = pack(B[(k0 + 2 * t) * ldb + n], B[(k0 + 2 * t + 1) * ldb + n]);
-        b[1] = pack(B[(k0 + 2 * t + 8) * ldb + n],
-                    B[(k0 + 2 * t + 9) * ldb + n]);
-      }
-      mma_bf16(c[nt], a, b);
-    }
-  }
-}
-
-// The same product in fp32 FMAs, on the same fragment ownership.
 template <int NT, int K, bool kTransB>
 __device__ __forceinline__ void warp_mm(float (&c)[NT][4], const float* A,
                                         int lda, const float* B, int ldb) {
@@ -553,6 +510,9 @@ constexpr int kFwdRows = 128;       // query rows of a forward block
 constexpr int kFwdKeys = 128;       // key tile of the forward ring
 constexpr int kBwdKeys = 128;       // key rows of a dk/dv block
 constexpr int kBwdRows = 64;        // query tile of the dk/dv ring
+constexpr int kDqStages = 2;        // K/V tiles of the dq ring
+constexpr int kDqRows = 128;        // query rows of a dq block
+constexpr int kDqKeys = 64;         // key tile of the dq ring
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
 
@@ -572,6 +532,11 @@ template <int D>
 constexpr size_t dkdv_hopper_smem() {
   return 1024 + 2 * ((size_t)2 * kBwdKeys + 2 * kBwdStages * kBwdRows) * D
          + 4 * 2 * kBwdStages * kBwdRows + 8 * (1 + 2 * kBwdStages);
+}
+template <int D>
+constexpr size_t dq_hopper_smem() {
+  return 1024 + 2 * ((size_t)2 * kDqRows + 2 * kDqStages * kDqKeys) * D
+         + 8 * (1 + 2 * kDqStages);
 }
 
 // Forward, bf16. Grid (B * H, query tiles of kFwdRows); consumer c owns query
@@ -957,6 +922,188 @@ __global__ void __launch_bounds__(kHopperThreads, 1)
   }
 }
 
+// dq, bf16. Grid (B * H, query tiles of kDqRows); consumer c owns query rows
+// [64 c, 64 c + 64) of the tile, Q and dO stay resident, and K and V come
+// through the ring in kDqKeys-key tiles up to the diagonal. S = Q K^T and
+// dP = dO V^T by wgmma from shared memory, both operands K-major; dS is
+// rounded to bf16 in registers as the A operand of dQ += dS K, with K
+// MN-major from shared memory. Each block owns its dq rows: no atomics.
+// Key rows past T land as zeros, so their dS multiplies a zero K row and
+// adds nothing; query rows past T have a +inf LSE (p = 0) and are not
+// stored.
+template <int D>
+__global__ void __launch_bounds__(kHopperThreads, 1)
+    flash_bwd_dq_hopper(const __grid_constant__ CUtensorMap q_map,
+                        const __grid_constant__ CUtensorMap k_map,
+                        const __grid_constant__ CUtensorMap v_map,
+                        const __grid_constant__ CUtensorMap do_map,
+                        const float* __restrict__ lse,
+                        const float* __restrict__ delta,
+                        bf16* __restrict__ dq, const Geometry geo) {
+  using Tl = hopper::Tile<D>;
+  constexpr int kQBytes = 2 * kDqRows * D;
+  constexpr int kKBytes = 2 * kDqKeys * D;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* base = align_1024(smem_raw);
+  unsigned char* q_s = base;
+  unsigned char* do_s = q_s + kQBytes;
+  unsigned char* k_s = do_s + kQBytes;               // [kDqStages] tiles
+  unsigned char* v_s = k_s + kDqStages * kKBytes;    // [kDqStages] tiles
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(v_s + kDqStages * kKBytes);
+  uint64_t* full = q_full + 1;
+  uint64_t* empty = full + kDqStages;
+
+  const int t_len = geo.t_len;
+  const int bh = blockIdx.x;
+  const int b = bh / geo.heads, h = bh % geo.heads;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kDqRows;  // heaviest first
+  const int n_k = (t_len + kDqKeys - 1) / kDqKeys;
+  const int k_end =
+      geo.causal ? min(n_k, (q0 + kDqRows - 1) / kDqKeys + 1) : n_k;
+  const int wg = threadIdx.x / 128;
+
+  if (threadIdx.x == 0) {
+    hopper::mbar_init(q_full, 1);
+    for (int s = 0; s < kDqStages; ++s) {
+      hopper::mbar_init(&full[s], 1);
+      hopper::mbar_init(&empty[s], kConsumerWarps);
+    }
+    hopper::mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (wg == 0) {
+    hopper::regs_dec<kProducerRegs>();
+    if (threadIdx.x == 0) {
+      hopper::mbar_arrive_expect_tx(q_full, 2 * kQBytes);
+      for (int c = 0; c < Tl::kBoxes; ++c) {
+        const int off = c * kDqRows * Tl::kRowBytes;
+        hopper::tma_load_4d(q_s + off, &q_map, q_full, c * Tl::kBoxCols, h,
+                            q0, b);
+        hopper::tma_load_4d(do_s + off, &do_map, q_full, c * Tl::kBoxCols,
+                            h, q0, b);
+      }
+      for (int kt = 0; kt < k_end; ++kt) {
+        const int s = kt % kDqStages;
+        if (kt >= kDqStages)
+          hopper::mbar_wait(&empty[s], (kt / kDqStages - 1) & 1);
+        hopper::mbar_arrive_expect_tx(&full[s], 2 * kKBytes);
+        for (int c = 0; c < Tl::kBoxes; ++c) {
+          const int off = s * kKBytes + c * kDqKeys * Tl::kRowBytes;
+          hopper::tma_load_4d(k_s + off, &k_map, &full[s], c * Tl::kBoxCols,
+                              h, kt * kDqKeys, b);
+          hopper::tma_load_4d(v_s + off, &v_map, &full[s], c * Tl::kBoxCols,
+                              h, kt * kDqKeys, b);
+        }
+      }
+    }
+  } else {
+    hopper::regs_inc<kConsumerRegs>();
+    const int c = wg - 1;
+    const int tid = threadIdx.x % 128;
+    const int lane = tid % 32, g = lane / 4, t4 = lane % 4;
+    const int wrow0 = q0 + 64 * c;               // the consumer's first row
+    const int row0 = wrow0 + 16 * (tid / 32) + g;  // rows row0, row0 + 8
+    const float scale2 = geo.sm_scale * kLog2e;  // scores in log2 units
+
+    // the rows' LSE (in log2 units) and delta; past t_len the LSE is +inf,
+    // so p = exp2(s - lse) = 0 there
+    float lse2[2], dlt[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = row0 + 8 * r;
+      const bool in = row < t_len;
+      lse2[r] = in ? lse[(size_t)bh * t_len + row] * kLog2e : INFINITY;
+      dlt[r] = in ? delta[(size_t)bh * t_len + row] : 0.f;
+    }
+    float dq_acc[D / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) dq_acc[i] = 0.f;
+    hopper::mbar_wait(q_full, 0);
+
+    for (int kt = 0; kt < k_end; ++kt) {
+      const int s = kt % kDqStages;
+      const int k0 = kt * kDqKeys;
+      hopper::mbar_wait(&full[s], (kt / kDqStages) & 1);
+      if (geo.causal && k0 > wrow0 + 63) {
+        // every key of this tile lies right of every row of this consumer
+        if (lane == 0) hopper::mbar_arrive(&empty[s]);
+        continue;
+      }
+      const uint32_t q_a = hopper::opaque_addr(q_s);
+      const uint32_t do_a = hopper::opaque_addr(do_s);
+      const uint32_t k_t = hopper::smem_addr(k_s + s * kKBytes);
+      const uint32_t v_t = hopper::smem_addr(v_s + s * kKBytes);
+
+      float p[kDqKeys / 2], ds[kDqKeys / 2];   // s, dp (query, key)
+      hopper::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        hopper::Wgmma<kDqKeys>::ss<0, 0>(
+            p, hopper::desc_kmajor<D, kDqRows>(q_a, 64 * c, kk),
+            hopper::desc_kmajor<D, kDqKeys>(k_t, 0, kk), kk > 0);
+      hopper::wgmma_commit();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        hopper::Wgmma<kDqKeys>::ss<0, 0>(
+            ds, hopper::desc_kmajor<D, kDqRows>(do_a, 64 * c, kk),
+            hopper::desc_kmajor<D, kDqKeys>(v_t, 0, kk), kk > 0);
+      hopper::wgmma_commit();
+      hopper::wgmma_wait<1>();
+      hopper::fence_regs(p);
+
+      // p = exp(scale s - lse[row]), zero right of the diagonal (the key
+      // column 8 i + 2 t + (r & 1) > row - k0)
+      const bool diag = geo.causal && k0 + kDqKeys - 1 > wrow0;
+      const int lim = row0 - k0 - 2 * t4;
+#pragma unroll
+      for (int i = 0; i < kDqKeys / 8; ++i)
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          float x = hopper::exp2_approx(
+              fmaf(p[4 * i + r], scale2, -lse2[r >> 1]));
+          if (diag && 8 * i + (r & 1) > lim + 8 * (r >> 1)) x = 0.f;
+          p[4 * i + r] = x;
+        }
+      hopper::wgmma_wait<0>();
+      hopper::fence_regs(ds);
+
+      // ds = p (dp - delta[row]) scale, rounded to bf16 A fragments
+      uint32_t da[kDqKeys / 16][4];
+#pragma unroll
+      for (int i = 0; i < kDqKeys / 8; ++i)
+#pragma unroll
+        for (int r = 0; r < 4; ++r)
+          ds[4 * i + r] = p[4 * i + r] * (ds[4 * i + r] - dlt[r >> 1])
+                          * geo.sm_scale;
+#pragma unroll
+      for (int j = 0; j < kDqKeys / 16; ++j) hopper::acc_to_a(ds, j, da[j]);
+      hopper::wgmma_fence();
+#pragma unroll
+      for (int j = 0; j < kDqKeys / 16; ++j)
+        hopper::Wgmma<D>::template rs<1>(
+            dq_acc, da[j], hopper::desc_mnmajor<D, kDqKeys>(k_t, j), 1);
+      hopper::wgmma_commit();
+      hopper::wgmma_wait<0>();
+      hopper::fence_regs(dq_acc);
+      if (lane == 0) hopper::mbar_arrive(&empty[s]);
+    }
+
+    const size_t head = ((size_t)b * t_len * geo.heads + h) * D;
+    const int stride = geo.heads * D;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = row0 + 8 * r;
+      if (row >= t_len) continue;
+      bf16* dst = dq + head + (size_t)row * stride + 2 * t4;
+#pragma unroll
+      for (int i = 0; i < D / 8; ++i)
+        store_pair(dst + 8 * i, dq_acc[4 * i + 2 * r],
+                   dq_acc[4 * i + 2 * r + 1]);
+    }
+  }
+}
+
 // dynamic shared memory of each kernel (its carve-up above)
 template <typename T, int D>
 size_t fwd_smem() {
@@ -989,15 +1136,27 @@ struct Ptrs {
 
 enum class Which { kFwd, kDkdv, kDq };
 
-// bf16 forward and dk/dv: the Hopper kernels, on tensor maps of this
-// launch's tensors
+// bf16: the Hopper kernels, on tensor maps of this launch's tensors
 template <int D>
 cudaError_t launch_hopper(Which which, const Ptrs& p, int batch,
                           const Geometry& geo, cudaStream_t stream) {
   const int t = geo.t_len, hs = geo.heads;
   CUtensorMap q_map, k_map, v_map, do_map;
   cudaError_t err = cudaSuccess;
-  if (which == Which::kFwd) {
+  if (which == Which::kDq) {
+    if (!hopper::encode_bthd<D>(&q_map, p.q, batch, t, hs, kDqRows)
+        || !hopper::encode_bthd<D>(&k_map, p.k, batch, t, hs, kDqKeys)
+        || !hopper::encode_bthd<D>(&v_map, p.v, batch, t, hs, kDqKeys)
+        || !hopper::encode_bthd<D>(&do_map, p.dout, batch, t, hs, kDqRows))
+      return cudaErrorInvalidValue;
+    auto kernel = flash_bwd_dq_hopper<D>;
+    err = set_smem(kernel, dq_hopper_smem<D>());
+    if (err != cudaSuccess) return err;
+    const dim3 grid(batch * hs, (t + kDqRows - 1) / kDqRows);
+    kernel<<<grid, kHopperThreads, dq_hopper_smem<D>(), stream>>>(
+        q_map, k_map, v_map, do_map, static_cast<const float*>(p.lse),
+        static_cast<const float*>(p.delta), static_cast<bf16*>(p.dq), geo);
+  } else if (which == Which::kFwd) {
     if (!hopper::encode_bthd<D>(&q_map, p.q, batch, t, hs, kFwdRows)
         || !hopper::encode_bthd<D>(&k_map, p.k, batch, t, hs, kFwdKeys)
         || !hopper::encode_bthd<D>(&v_map, p.v, batch, t, hs, kFwdKeys))
@@ -1027,9 +1186,8 @@ cudaError_t launch_hopper(Which which, const Ptrs& p, int batch,
   return cudaGetLastError();
 }
 
-// fp32: all three kernels on FMAs; bf16: the Hopper forward and dk/dv
-// kernels, the mma.sync dq kernel. (wgmma's fp32 path is TF32, which
-// would round the inputs.)
+// bf16: the three Hopper kernels; fp32: the three FMA kernels. (wgmma's
+// fp32 path is TF32, which would round the inputs.)
 template <typename T, int D>
 cudaError_t launch(Which which, const Ptrs& p, int batch, const Geometry& geo,
                    cudaStream_t stream) {
@@ -1066,17 +1224,20 @@ cudaError_t launch(Which which, const Ptrs& p, int batch, const Geometry& geo,
             static_cast<T*>(p.dv), geo);
       }
       break;
-    case Which::kDq: {
-      auto kernel = flash_bwd_dq_kernel<T, D>;
-      err = set_smem(kernel, dq_smem<T, D>());
-      if (err != cudaSuccess) return err;
-      kernel<<<grid, kThreads, dq_smem<T, D>(), stream>>>(
-          static_cast<const T*>(p.q), static_cast<const T*>(p.k),
-          static_cast<const T*>(p.v), static_cast<const T*>(p.dout),
-          static_cast<const float*>(p.lse), static_cast<const float*>(p.delta),
-          static_cast<T*>(p.dq), geo);
+    case Which::kDq:
+      if constexpr (kBf16) {
+        return launch_hopper<D>(which, p, batch, geo, stream);
+      } else {
+        auto kernel = flash_bwd_dq_kernel<T, D>;
+        err = set_smem(kernel, dq_smem<T, D>());
+        if (err != cudaSuccess) return err;
+        kernel<<<grid, kThreads, dq_smem<T, D>(), stream>>>(
+            static_cast<const T*>(p.q), static_cast<const T*>(p.k),
+            static_cast<const T*>(p.v), static_cast<const T*>(p.dout),
+            static_cast<const float*>(p.lse),
+            static_cast<const float*>(p.delta), static_cast<T*>(p.dq), geo);
+      }
       break;
-    }
   }
   return cudaGetLastError();
 }

@@ -1,8 +1,9 @@
 // Hopper (sm_90a) building blocks for the port's hand-written kernels, as
 // inline PTX: TMA tile loads into shared memory and the tensor maps that
-// describe them, mbarriers, wgmma (warpgroup matrix multiply) with its
-// shared-memory descriptors and synchronisation, and setmaxnreg. Included
-// by the kernels' sources under csrc/ (a build rehashes when it changes).
+// describe them, 1-d bulk copies, mbarriers, named barriers, wgmma
+// (warpgroup matrix multiply) with its shared-memory descriptors and
+// synchronisation, and setmaxnreg. Included by the kernels' sources under
+// csrc/ (a build rehashes when it changes).
 //
 // Tile layout. A [rows, D] bf16 tile of a [B, T, H, D] tensor is loaded
 // by TMA as D / (W / 2) column boxes of W bytes a row, W = min(2 D, 128),
@@ -88,6 +89,25 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
       :: "r"(smem_addr(dst)), "l"(reinterpret_cast<uint64_t>(map)),
          "r"(smem_addr(bar)), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
       : "memory");
+}
+
+// A 1-d bulk copy of `bytes` (a multiple of 16; both addresses 16-byte
+// aligned) from global into shared memory; completion is counted on `bar`
+// in bytes. One contiguous run, so no tensor map.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1], %2, [%3];\n"
+      :: "r"(smem_addr(dst)), "l"(src), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
+}
+
+// a barrier among the first kThreads threads of the block (a multiple of
+// 32), barrier id kId > 0 (0 is __syncthreads')
+template <int kId, int kThreads>
+__device__ __forceinline__ void bar_sync() {
+  asm volatile("bar.sync %0, %1;\n" :: "n"(kId), "n"(kThreads) : "memory");
 }
 
 // ---------------------------------------------------------------------------

@@ -34,17 +34,25 @@
 //  - the n_rep query heads of a kv head share the block (GQA rows are
 //    kv-major, row = rep * T + t, as in the reference), so a K/V page is read
 //    from device memory once per row tile, not once per query head;
-//  - K/V tiles are staged through shared memory with 16-byte vector loads;
-//    the tile's fp32 scores stay in shared memory when
-//    rows * table_span * 4 B fits in the 227 KB (16 rows of a 2,048-token
-//    span take 128 KB) and are recomputed in each pass otherwise.
-// Tensor cores (wgmma), TMA and a software pipeline are later work.
+//  - two kernels. bf16 decode and verify (at most 16 query rows a slot and
+//    kv head) take paged_decode_hopper, which streams the live K and then
+//    V pages through a ring of bf16 tiles in shared memory with bulk
+//    copies (cp.async.bulk) on mbarriers, so copies stay in flight while
+//    all 8 warps compute (its note below). The chunk path, fp32 and spans
+//    whose scores do not fit take paged_attention_kernel: K/V tiles staged
+//    through shared memory as fp32 by 16-byte vector loads, the tile's
+//    fp32 scores kept in shared memory when rows * table_span * 4 B fits
+//    in the 227 KB (16 rows of a 2,048-token span take 128 KB) and
+//    recomputed in each pass otherwise.
+// Tensor cores (wgmma) for the chunk path are later work.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stddef.h>
 #include <stdint.h>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -346,6 +354,372 @@ cudaError_t launch_typed(const void* q, const void* k_pages,
                       : launch<T, false>(a, batch, kv_heads, smem, stream);
 }
 
+// ---------------------------------------------------------------------------
+// bf16 decode and verify: paged_decode_hopper. A launch takes it when a
+// (slot, kv head) has at most kDecodeMaxRows query rows (decode: n_rep;
+// verify: n_rep (k + 1)), D is 64 or 128, and the rows' fp32 scores over
+// the table span fit in shared memory (ray_torch/ops/paged_attention.py::
+// decode_rows plans it); everything else stays on paged_attention_kernel.
+// The numerics are that kernel's, to the float, but for the order of the
+// fp32 sums (q.k, l and p.V).
+//
+// Grid (Hkv, B); 8 consumer warps and one producer warp a block. Lane 0 of
+// the producer streams the slot's live K columns, then its live V columns,
+// through a ring of kDecodeStages bf16 tiles of kDecodeKeys keys: a page
+// of one kv head is one contiguous run of the pool, so each page run of a
+// tile is one cp.async.bulk, completed on the stage's full mbarrier; the
+// consumers free a stage on its empty mbarrier. V's copies are issued as
+// soon as K's stages free up, so the V pass starts on landed tiles.
+//  pass 1: each warp takes 8 keys of a tile; kLanes lanes share a key and
+//          split D, with the rows' q slices in registers. The rows' partial
+//          dot products are reduce-scattered over those lanes (each lane
+//          ends with one row's sum), rounded to bf16, scaled, masked, kept
+//          in shared memory as fp32, and maxed into the exact row max;
+//  pass 2: e = exp(s - m) in place, l = sum e, then p = round_bf16(e / l);
+//  pass 3: each warp accumulates p V over its 8 keys of each V tile, the
+//          lanes splitting D; the 8 warps' sums are added in a fixed order
+//          through the drained ring.
+// ---------------------------------------------------------------------------
+
+constexpr int kDecodeWarps = 8;       // consumer warps
+constexpr int kDecodeThreads = 32 * (kDecodeWarps + 1);
+constexpr int kDecodeKeys = 64;       // keys of a ring tile, 8 a warp
+constexpr int kDecodeStages = 4;      // ring tiles
+constexpr int kDecodeMaxRows = 16;
+
+using bf16 = __nv_bfloat16;
+
+struct DecodeArgs {
+  const bf16* q;
+  const bf16* k_pages;
+  const bf16* v_pages;
+  const int* page_tables;
+  const int* base;
+  const int* limit;
+  bf16* out;
+  int t_span, heads, n_rep, num_pages, page_size, max_pages;
+  float sm_scale;
+};
+
+// kN bf16 values (2 kN bytes, aligned to min(2 kN, 16)) as fp32
+template <int kN>
+__device__ __forceinline__ void load_bf16(const bf16* src, float (&dst)[kN]) {
+  static_assert(kN == 2 || kN == 4 || kN % 8 == 0, "2, 4 or 8 n values");
+  uint32_t w[kN / 2];
+  if constexpr (kN % 8 == 0) {
+#pragma unroll
+    for (int i = 0; i < kN / 8; ++i) {
+      const uint4 v = *reinterpret_cast<const uint4*>(src + 8 * i);
+      w[4 * i] = v.x;
+      w[4 * i + 1] = v.y;
+      w[4 * i + 2] = v.z;
+      w[4 * i + 3] = v.w;
+    }
+  } else if constexpr (kN == 4) {
+    const uint2 v = *reinterpret_cast<const uint2*>(src);
+    w[0] = v.x;
+    w[1] = v.y;
+  } else {
+    w[0] = *reinterpret_cast<const uint32_t*>(src);
+  }
+#pragma unroll
+  for (int i = 0; i < kN / 2; ++i) {
+    dst[2 * i] = __uint_as_float(w[i] << 16);
+    dst[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
+  }
+}
+
+// Sum of v[0, kN) over the lanes of a group that differ in bits kO, kO / 2,
+// ..., 1 of their lane index, reduce-scattered: while kN > 1 a step halves
+// the rows (the lane with bit kO set keeps the upper half and adds its
+// partner's share of it), then it adds over the lanes that hold the same
+// row. A lane ends with the sum of row scatter_row(part) in v[0].
+template <int kN, int kO, int kR>
+__device__ __forceinline__ void reduce_scatter(float (&v)[kR], int part) {
+  if constexpr (kN > 1) {
+    constexpr int kH = kN / 2;
+    const bool upper = (part & kO) != 0;
+#pragma unroll
+    for (int i = 0; i < kH; ++i) {
+      const float send = upper ? v[i] : v[i + kH];
+      const float keep = upper ? v[i + kH] : v[i];
+      v[i] = keep + __shfl_xor_sync(0xffffffffu, send, kO);
+    }
+    if constexpr (kO > 1) reduce_scatter<kH, kO / 2>(v, part);
+  } else {
+    v[0] += __shfl_xor_sync(0xffffffffu, v[0], kO);
+    if constexpr (kO > 1) reduce_scatter<1, kO / 2>(v, part);
+  }
+}
+
+// the row whose sum reduce_scatter<kR, kL / 2> leaves in lane `part`
+template <int kR, int kL>
+__device__ __forceinline__ int scatter_row(int part) {
+  int row = 0;
+#pragma unroll
+  for (int o = kL / 2, n = kR; n > 1; o /= 2, n /= 2)
+    if (part & o) row += n / 2;
+  return row;
+}
+
+__device__ __forceinline__ unsigned char* align_128(unsigned char* p) {
+  return reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(p) + 127) & ~uintptr_t(127));
+}
+
+template <int D, int kRows>
+__global__ void __launch_bounds__(kDecodeThreads, kRows <= 4 ? 2 : 1)
+    paged_decode_hopper(const DecodeArgs a) {
+  // lanes sharing a key: q's slices take kRows * D / kLanes registers
+  constexpr int kLanes = kRows <= 2 ? 8 : kRows <= 4 ? 16 : 32;
+  constexpr int kE = D / kLanes;                // their slice of D
+  constexpr int kStep = 32 / kLanes;            // keys a warp step
+  constexpr int kWarpKeys = kDecodeKeys / kDecodeWarps;
+  constexpr int kE3 = D / 32;                   // a lane's slice in pass 3
+  // lane bits that name the row a lane holds after reduce_scatter
+  constexpr int kRowBits = (kLanes - 1) & ~(kLanes / kRows - 1);
+  static_assert(kRows <= kLanes && kE >= 2 && kE3 >= 2, "rows or D");
+
+  extern __shared__ unsigned char smem_raw[];
+  bf16* ring = reinterpret_cast<bf16*>(align_128(smem_raw));
+  uint64_t* full =
+      reinterpret_cast<uint64_t*>(ring + kDecodeStages * kDecodeKeys * D);
+  uint64_t* empty = full + kDecodeStages;
+  float* s_buf = reinterpret_cast<float*>(empty + kDecodeStages);
+  const int g = blockIdx.x, b = blockIdx.y;
+  const int n_rows = a.n_rep * a.t_span;
+  const int max_len = a.max_pages * a.page_size;
+  float* max_red = s_buf + (size_t)kRows * max_len;  // [warp][row]
+  float* sum_red = max_red + kDecodeWarps * kRows;   // [warp][row]
+  int* pt_s = reinterpret_cast<int*>(sum_red + kDecodeWarps * kRows);
+
+  // live columns, as paged_attention_kernel bounds them: row (rep, t) sees
+  // col < valid(t) = min(limit, base + t + 1, max_len), and the block reads
+  // col < hi, the largest valid, or the whole table span when a row has no
+  // live key (its dense softmax is then uniform over the span)
+  const int bs = a.base[b], lm = a.limit[b];
+  int hi = 0;
+  for (int t = 0; t < a.t_span; ++t) {
+    const int valid = min(min(lm, bs + t + 1), max_len);
+    hi = max(hi, valid > 0 ? valid : max_len);
+  }
+  const int n = (hi + kDecodeKeys - 1) / kDecodeKeys;   // tiles a pass
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kDecodeStages; ++s) {
+      hopper::mbar_init(&full[s], 1);
+      hopper::mbar_init(&empty[s], kDecodeWarps);
+    }
+    hopper::mbar_init_fence();
+  }
+  for (int i = threadIdx.x; i < a.max_pages; i += kDecodeThreads)
+    pt_s[i] = a.page_tables[(size_t)b * a.max_pages + i];
+  __syncthreads();
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  if (warp == kDecodeWarps) {
+    // the producer: K tiles 0..n-1, then V tiles 0..n-1, through the ring
+    if (lane == 0) {
+      for (int i = 0; i < 2 * n; ++i) {
+        const int s = i % kDecodeStages;
+        if (i >= kDecodeStages)
+          hopper::mbar_wait(&empty[s], (i / kDecodeStages - 1) & 1);
+        const bf16* pool = i < n ? a.k_pages : a.v_pages;
+        const int c0 = (i < n ? i : i - n) * kDecodeKeys;
+        const int c1 = min(c0 + kDecodeKeys, hi);
+        hopper::mbar_arrive_expect_tx(&full[s], (uint32_t)(c1 - c0) * D * 2);
+        bf16* dst = ring + (size_t)s * kDecodeKeys * D;
+        for (int c = c0; c < c1;) {
+          const int off = c % a.page_size;
+          const int run = min(a.page_size - off, c1 - c);
+          const bf16* src =
+              pool + (((size_t)g * a.num_pages + pt_s[c / a.page_size])
+                          * a.page_size + off) * D;
+          hopper::bulk_load(dst + (size_t)(c - c0) * D, src,
+                            (uint32_t)run * D * 2, &full[s]);
+          c += run;
+        }
+      }
+    }
+    return;
+  }
+
+  // pass 1: scores and the exact row max
+  const int part = lane % kLanes, sub = lane / kLanes;
+  const int my_row = scatter_row<kRows, kLanes>(part);
+  const bool writer = (part & (kLanes / kRows - 1)) == 0 && my_row < n_rows;
+  const int my_valid =
+      max(min(min(lm, bs + my_row % a.t_span + 1), max_len), 0);
+  float mx = -INFINITY;
+  {
+    float qr[kRows][kE];
+#pragma unroll
+    for (int r = 0; r < kRows; ++r) {
+      if (r < n_rows) {
+        const int rep = r / a.t_span, t = r % a.t_span;
+        load_bf16(a.q + (((size_t)b * a.t_span + t) * a.heads
+                         + g * a.n_rep + rep) * D + part * kE, qr[r]);
+      } else {
+#pragma unroll
+        for (int e = 0; e < kE; ++e) qr[r][e] = 0.f;
+      }
+    }
+    for (int i = 0; i < n; ++i) {
+      const int s = i % kDecodeStages;
+      hopper::mbar_wait(&full[s], (i / kDecodeStages) & 1);
+      const bf16* tile = ring + (size_t)s * kDecodeKeys * D;
+      const int c0 = i * kDecodeKeys;
+      const int ncols = min(kDecodeKeys, hi - c0);
+#pragma unroll
+      for (int j = 0; j < kWarpKeys; j += kStep) {
+        const int cc = warp * kWarpKeys + j + sub;
+        float kv[kE];
+        if (cc < ncols) {
+          load_bf16(tile + cc * D + part * kE, kv);
+        } else {
+#pragma unroll
+          for (int e = 0; e < kE; ++e) kv[e] = 0.f;
+        }
+        float acc[kRows];
+#pragma unroll
+        for (int r = 0; r < kRows; ++r) {
+          acc[r] = 0.f;
+#pragma unroll
+          for (int e = 0; e < kE; ++e) acc[r] = fmaf(qr[r][e], kv[e], acc[r]);
+        }
+        reduce_scatter<kRows, kLanes / 2>(acc, part);
+        if (writer && cc < ncols) {
+          const int c = c0 + cc;
+          const float x =
+              c < my_valid
+                  ? __bfloat162float(__float2bfloat16(acc[0])) * a.sm_scale
+                  : kMasked;
+          s_buf[(size_t)my_row * max_len + c] = x;
+          mx = fmaxf(mx, x);
+        }
+      }
+      __syncwarp();
+      if (lane == 0) hopper::mbar_arrive(&empty[s]);
+    }
+  }
+  // the warp's max of each row, over the lanes that hold that row
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1)
+    if (!(o & kRowBits)) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
+  if (writer && sub == 0) max_red[warp * kRows + my_row] = mx;
+  hopper::bar_sync<1, 32 * kDecodeWarps>();
+
+  // pass 2: e = exp(s - m) in place and l = sum e; then p = round(e / l)
+  const int tid = threadIdx.x;
+#pragma unroll
+  for (int r = 0; r < kRows; ++r) {
+    if (r >= n_rows) break;
+    float m = max_red[r];
+    for (int w = 1; w < kDecodeWarps; ++w)
+      m = fmaxf(m, max_red[w * kRows + r]);
+    float l = 0.f;
+    float* row = s_buf + (size_t)r * max_len;
+    for (int c = tid; c < hi; c += 32 * kDecodeWarps) {
+      const float e = expf(row[c] - m);
+      row[c] = e;
+      l += e;
+    }
+    l = warp_sum(l);
+    if (lane == 0) sum_red[warp * kRows + r] = l;
+  }
+  hopper::bar_sync<1, 32 * kDecodeWarps>();
+#pragma unroll
+  for (int r = 0; r < kRows; ++r) {
+    if (r >= n_rows) break;
+    float l = 0.f;
+    for (int w = 0; w < kDecodeWarps; ++w) l += sum_red[w * kRows + r];
+    float* row = s_buf + (size_t)r * max_len;
+    for (int c = tid; c < hi; c += 32 * kDecodeWarps)
+      row[c] = __bfloat162float(__float2bfloat16(row[c] / l));
+  }
+  hopper::bar_sync<1, 32 * kDecodeWarps>();
+
+  // pass 3: p V, each warp over its keys of every V tile
+  float acc[kRows][kE3];
+#pragma unroll
+  for (int r = 0; r < kRows; ++r)
+#pragma unroll
+    for (int e = 0; e < kE3; ++e) acc[r][e] = 0.f;
+  for (int i = n; i < 2 * n; ++i) {
+    const int s = i % kDecodeStages;
+    hopper::mbar_wait(&full[s], (i / kDecodeStages) & 1);
+    const bf16* tile = ring + (size_t)s * kDecodeKeys * D;
+    const int c0 = (i - n) * kDecodeKeys;
+    const int c_end = min(warp * kWarpKeys + kWarpKeys, hi - c0);
+    for (int cc = warp * kWarpKeys; cc < c_end; ++cc) {
+      float v[kE3];
+      load_bf16(tile + cc * D + lane * kE3, v);
+#pragma unroll
+      for (int r = 0; r < kRows; ++r) {
+        if (r < n_rows) {
+          const float p = s_buf[(size_t)r * max_len + c0 + cc];
+#pragma unroll
+          for (int e = 0; e < kE3; ++e) acc[r][e] = fmaf(p, v[e], acc[r][e]);
+        }
+      }
+    }
+    __syncwarp();
+    if (lane == 0) hopper::mbar_arrive(&empty[s]);
+  }
+
+  // the warps' sums through the drained ring, added in warp order
+  float* part_s = reinterpret_cast<float*>(ring);   // [warp][row][D]
+  hopper::bar_sync<1, 32 * kDecodeWarps>();
+#pragma unroll
+  for (int r = 0; r < kRows; ++r)
+    if (r < n_rows)
+#pragma unroll
+      for (int e = 0; e < kE3; ++e)
+        part_s[(warp * kRows + r) * D + lane * kE3 + e] = acc[r][e];
+  hopper::bar_sync<1, 32 * kDecodeWarps>();
+  for (int o = tid; o < n_rows * D; o += 32 * kDecodeWarps) {
+    const int r = o / D, d = o - r * D;
+    float sum = 0.f;
+    for (int w = 0; w < kDecodeWarps; ++w)
+      sum += part_s[(w * kRows + r) * D + d];
+    const int rep = r / a.t_span, t = r % a.t_span;
+    a.out[(((size_t)b * a.t_span + t) * a.heads + g * a.n_rep + rep) * D + d] =
+        __float2bfloat16(sum);
+  }
+}
+
+// dynamic shared memory of a decode-route block (its carve-up above; the
+// same as ray_torch/ops/paged_attention.py::_decode_smem_bytes)
+size_t decode_smem(int rows, int head_dim, int max_len, int max_pages) {
+  return 128 + (size_t)2 * kDecodeStages * kDecodeKeys * head_dim
+         + 16 * kDecodeStages
+         + 4 * ((size_t)rows * max_len + 2 * kDecodeWarps * rows + max_pages);
+}
+
+template <int D, int kRows>
+cudaError_t launch_decode(const DecodeArgs& a, int batch, int kv_heads,
+                          size_t smem, cudaStream_t stream) {
+  auto kernel = paged_decode_hopper<D, kRows>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<dim3(kv_heads, batch), kDecodeThreads, smem, stream>>>(a);
+  return cudaGetLastError();
+}
+
+template <int D>
+cudaError_t launch_decode_rows(const DecodeArgs& a, int rows, int batch,
+                               int kv_heads, size_t smem,
+                               cudaStream_t stream) {
+  switch (rows) {
+    case 2: return launch_decode<D, 2>(a, batch, kv_heads, smem, stream);
+    case 4: return launch_decode<D, 4>(a, batch, kv_heads, smem, stream);
+    case 8: return launch_decode<D, 8>(a, batch, kv_heads, smem, stream);
+    case 16: return launch_decode<D, 16>(a, batch, kv_heads, smem, stream);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
 }  // namespace
 
 // C interface (ctypes). Pointers are device pointers from Tensor.data_ptr();
@@ -375,4 +749,39 @@ extern "C" int paged_attention_launch(
       q, k_pages, v_pages, pt, bs, lm, out, batch, t_span, heads, kv_heads,
       head_dim, num_pages, page_size, max_pages, rows_per_block, store_scores,
       sm_scale, st);
+}
+
+// The bf16 decode route (paged_decode_hopper): the same arguments but for
+// `rows`, the block's query rows (2, 4, 8 or 16, at least n_rep * t_span),
+// in place of the general kernel's launch plan.
+extern "C" int paged_decode_launch(
+    const void* q, const void* k_pages, const void* v_pages,
+    const void* page_tables, const void* base, const void* limit, void* out,
+    int batch, int t_span, int heads, int kv_heads, int head_dim,
+    int num_pages, int page_size, int max_pages, int rows, float sm_scale,
+    void* stream) {
+  if (batch < 1 || batch > 65535 || t_span < 1 || kv_heads < 1
+      || heads % kv_heads != 0 || heads / kv_heads * t_span > rows
+      || rows > kDecodeMaxRows || page_size < 1 || max_pages < 1)
+    return (int)cudaErrorInvalidValue;
+  const size_t smem =
+      decode_smem(rows, head_dim, max_pages * page_size, max_pages);
+  if (smem > kSmemLimit) return (int)cudaErrorInvalidValue;
+  const DecodeArgs a{static_cast<const bf16*>(q),
+                     static_cast<const bf16*>(k_pages),
+                     static_cast<const bf16*>(v_pages),
+                     static_cast<const int*>(page_tables),
+                     static_cast<const int*>(base),
+                     static_cast<const int*>(limit), static_cast<bf16*>(out),
+                     t_span, heads, heads / kv_heads, num_pages, page_size,
+                     max_pages, sm_scale};
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (head_dim) {
+    case 64:
+      return (int)launch_decode_rows<64>(a, rows, batch, kv_heads, smem, st);
+    case 128:
+      return (int)launch_decode_rows<128>(a, rows, batch, kv_heads, smem, st);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }

@@ -13,9 +13,13 @@ exactly, so the kernel computes the gather path's dense-softmax numerics
 taken in another order.
 
 Dispatch is by the tensor's device, never by a fallback: a CPU tensor
-takes :func:`paged_attention_reference`; a CUDA tensor launches the kernel
-(``launches`` counts each launch) or raises — on a failed build, a shape
-the kernel does not take, or a refused launch.
+takes :func:`paged_attention_reference`; a CUDA tensor launches a kernel
+(each launch adds one to its kernel's count in ``launches``) or
+raises — on a failed build, a shape the kernel does not take, or a refused
+launch. Two kernels share the semantics (:func:`route` picks one): bf16
+decode and verify launches take ``paged_decode_hopper``, everything else
+(the chunk path, fp32, a span whose scores do not fit) takes
+``paged_attention_kernel``.
 """
 
 from __future__ import annotations
@@ -27,8 +31,9 @@ import torch
 from ray_torch.models.llama import dense_attention
 from ray_torch.ops import _build
 
-# kernel launches of this process (reset by whoever reads it)
-launches = 0
+# kernel launches of this process, per kernel (reset by whoever reads
+# them)
+launches = {"paged_decode_hopper": 0, "paged_attention_kernel": 0}
 
 # launch geometry; csrc/paged_attention.cu holds the same constants
 _KEY_TILE = 64
@@ -36,6 +41,12 @@ _MAX_ROWS = 16
 _MAX_HEAD_DIM = 256
 _SMEM_LIMIT = 231424
 _DTYPES = (torch.float32, torch.bfloat16)
+# the bf16 decode route (paged_decode_hopper)
+_DECODE_KEYS = 64
+_DECODE_STAGES = 4
+_DECODE_WARPS = 8
+_DECODE_MAX_ROWS = 16
+_DECODE_HEAD_DIMS = (64, 128)
 
 
 def _smem_bytes(rows: int, head_dim: int, score_ld: int) -> int:
@@ -55,6 +66,42 @@ def launch_plan(n_rows: int, head_dim: int, max_len: int) -> tuple[int, bool]:
         if _smem_bytes(r, head_dim, max_len) <= _SMEM_LIMIT:
             return r, True
     return rows, False
+
+
+def _decode_smem_bytes(rows: int, head_dim: int, max_len: int,
+                       max_pages: int) -> int:
+    """Dynamic shared memory of one decode-route block: alignment slack,
+    the ring of bf16 K/V tiles and its barriers, the rows' fp32 scores over
+    the table span, the warps' partial row max and sum, and the slot's
+    page-table row (the kernel's carve-up)."""
+    return (128 + 2 * _DECODE_STAGES * _DECODE_KEYS * head_dim
+            + 16 * _DECODE_STAGES
+            + 4 * (rows * max_len + 2 * _DECODE_WARPS * rows + max_pages))
+
+
+def decode_rows(n_rows: int, head_dim: int, page_size: int, max_pages: int,
+                dtype: torch.dtype) -> int | None:
+    """Query rows of a ``paged_decode_hopper`` block (a slot and kv head's
+    ``n_rows`` = n_rep * T rounded up to 2, 4, 8 or 16), or None when the
+    launch takes ``paged_attention_kernel``: fp32, more than 16 rows (a
+    prefill chunk), a head_dim other than 64 or 128, or scores over the
+    table span that do not fit in shared memory."""
+    if dtype != torch.bfloat16 or head_dim not in _DECODE_HEAD_DIMS \
+            or not 1 <= n_rows <= _DECODE_MAX_ROWS:
+        return None
+    rows = max(2, 1 << (n_rows - 1).bit_length())
+    if _decode_smem_bytes(rows, head_dim, page_size * max_pages,
+                          max_pages) > _SMEM_LIMIT:
+        return None
+    return rows
+
+
+def route(n_rows: int, head_dim: int, page_size: int, max_pages: int,
+          dtype: torch.dtype) -> str:
+    """The kernel a launch takes (see :func:`decode_rows`)."""
+    if decode_rows(n_rows, head_dim, page_size, max_pages, dtype) is None:
+        return "paged_attention_kernel"
+    return "paged_decode_hopper"
 
 
 def check_shapes(head_dim: int, dtype: torch.dtype) -> None:
@@ -87,7 +134,6 @@ def paged_attention_reference(q, k_pages, v_pages, page_tables, base, limit,
 
 
 def _launch(q, k_pages, v_pages, page_tables, base, limit, sm_scale: float):
-    global launches
     b, t, h, d = q.shape
     hkv, num_pages, page_size, d_pool = k_pages.shape
     max_pages = page_tables.shape[1]
@@ -121,30 +167,43 @@ def _launch(q, k_pages, v_pages, page_tables, base, limit, sm_scale: float):
     for name, x in (("q", q), ("k_pages", k_pages), ("v_pages", v_pages)):
         if x.data_ptr() % 16:
             raise ValueError(f"{name} must be 16-byte aligned")
-    rows, store = launch_plan((h // hkv) * t, d, max_pages * page_size)
-    fn = _kernel_fn()
+    n_rows = (h // hkv) * t
+    decode = decode_rows(n_rows, d, page_size, max_pages, q.dtype)
+    args = [q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+            page_tables.data_ptr(), base.data_ptr(), limit.data_ptr(),
+            out.data_ptr(), b, t, h, hkv, d, num_pages, page_size, max_pages]
+    if decode is not None:
+        kernel = "paged_decode_hopper"
+        args += [decode, float(sm_scale)]
+    else:
+        kernel = "paged_attention_kernel"
+        rows, store = launch_plan(n_rows, d, max_pages * page_size)
+        args += [rows, int(store), float(sm_scale),
+                 int(q.dtype == torch.bfloat16)]
+    fn = _kernel_fn(kernel)
     with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
-                 page_tables.data_ptr(), base.data_ptr(), limit.data_ptr(),
-                 out.data_ptr(), b, t, h, hkv, d, num_pages, page_size,
-                 max_pages, rows, int(store), float(sm_scale),
-                 int(q.dtype == torch.bfloat16), stream)
+        err = fn(*args, torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
-        raise RuntimeError(f"paged attention kernel launch failed: CUDA "
-                           f"error {err}")
-    launches += 1
+        raise RuntimeError(f"paged attention kernel {kernel} launch failed: "
+                           f"CUDA error {err}")
+    launches[kernel] += 1
     return out
 
 
-def _kernel_fn():
-    lib = _build.load("paged_attention")
-    fn = lib.paged_attention_launch
+# each kernel's C entry point, and how many int arguments follow the 7
+# pointers and B, T, H, Hkv, D, P, page, max_pages before sm_scale (rows,
+# store; or rows) and after it (is_bf16; or none); the stream comes last
+_ENTRY = {"paged_attention_kernel": ("paged_attention_launch", 2, 1),
+          "paged_decode_hopper": ("paged_decode_launch", 1, 0)}
+
+
+def _kernel_fn(kernel: str):
+    name, before, after = _ENTRY[kernel]
+    fn = getattr(_build.load("paged_attention"), name)
     if fn.argtypes is None:
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
-        # 7 pointers; B, T, H, Hkv, D, P, page, max_pages, rows, store;
-        # sm_scale; is_bf16; stream
-        fn.argtypes = [ptr] * 7 + [i32] * 10 + [ctypes.c_float, i32, ptr]
+        fn.argtypes = ([ptr] * 7 + [i32] * (8 + before) + [ctypes.c_float]
+                       + [i32] * after + [ptr])
         fn.restype = i32
     return fn
 
