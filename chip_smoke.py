@@ -8,21 +8,26 @@ Phases, each of which raises on failure (nothing is caught and carried on):
 1. device: the card's name and power limit; the CUDA kernels built from the
    sources in this checkout (one ``nvcc`` per source, started together),
    each kernel's registers and spills (a Hopper kernel that spills fails);
-2. both paged-attention kernels against their plain PyTorch version on the
-   card, at the shapes the main path gives them, in bf16 and fp32, each
-   launch checked to take the kernel ``paged_attention.route`` plans (bf16
-   decode and verify: ``paged_decode_hopper``; the chunk path, fp32 and a
-   long span: ``paged_attention_kernel``), then timed (CUDA events, and
-   device time by the profiler) beside the bound and the plain version;
+2. the three paged-attention kernels against their plain PyTorch version
+   on the card, at the shapes the main path gives them, in bf16 and fp32,
+   each launch checked to take the kernel ``paged_attention.route`` plans
+   (bf16 decode and verify: ``paged_decode_hopper``; bf16 prefill chunks:
+   ``paged_chunk_hopper``, at ragged chunk lengths, first chunks, pages of
+   8, 16, 32 and 128, n_rep 1, 2 and 4 and a slot with no live key, two
+   runs bit-identical; fp32 and D=256: ``paged_attention_kernel``), then
+   timed (CUDA events, and device time by the profiler) beside the bound
+   and the plain version;
 3. greedy identity: ``LLMEngine`` on llama_tiny in fp32 through the kernel
-   and through the gather path must produce identical tokens;
+   and through the gather path must produce identical tokens (the kernel
+   run's launches, all on ``paged_attention_kernel``, are counted);
 4. the serving path at full width: ``LLMServer`` serving llama3_1b (bf16,
    random weights from a seeded generator) at the serve bench's engine
    settings answers completions, some concurrent, through the kernels;
-   every launch counter (in all and per kernel) is zeroed just before and
-   read just after, and both kernels must have run. Then one decode step's
-   logits through the kernel (bf16: the decode route) and through the
-   gather path;
+   every launch counter is zeroed just before and read just after: every
+   prefill chunk must have run ``paged_chunk_hopper``, the decode steps
+   ``paged_decode_hopper``, and no launch ``paged_attention_kernel``.
+   Then one decode step's logits through the kernel (bf16: the decode
+   route) and through the gather path;
 5. the three flash-attention kernels against their plain versions on the
    card (bf16 and fp32, causal and not, at the training shapes, a small
    D=64 one and a ragged T=200 with B=2, H=3 at D=128 and D=32; two
@@ -38,7 +43,11 @@ Phases, each of which raises on failure (nothing is caught and carried on):
    flash kernels' share of the device time and must have run the Hopper
    kernel of each op and no other;
 7. the flash kernels against the dense path end to end: llama_tiny fp32
-   (grads and three train steps) and one llama3_1b bf16 step.
+   (grads and three train steps) and one llama3_1b bf16 step;
+8. ``int8_matmul`` (``mlp_impl="int8"``) on the card, forward and
+   backward, against the dequantized plain product at the training shape
+   and at an 8-row decode shape; the card is asked which row counts
+   ``torch._int_mm`` refuses, and the product must pad exactly those.
 
 Prints numbers on earlier lines, then a ``{"kernels": [...]}`` line (each
 row names the CUDA kernel it timed under ``kernel``), then the card's name
@@ -194,17 +203,19 @@ def device_ms(fn, reps: int = 10) -> float:
 def phase_kernels(card: str):
     from ray_torch.ops import paged_attention as pa
 
-    def check(name, got, want, dtype):
+    errs = {}                                  # max error, by kernel
+
+    def check(name, got, want, dtype, kernel):
         torch.cuda.synchronize()
         diff = (got.float() - want.float()).abs()
         err = float(diff.max())
         ok = bool((diff <= TOL[dtype] * (1 + want.float().abs())).all())
         log(f"  {name:<44} {str(dtype):<15} max_abs_err={err:.3e} "
-            f"(tol {TOL[dtype]:g}) {'ok' if ok else 'FAIL'}")
+            f"(tol {TOL[dtype]:g}) {kernel} {'ok' if ok else 'FAIL'}")
         if not (ok and torch.isfinite(got).all()):
             raise AssertionError(f"paged attention kernel disagrees with "
                                  f"its plain version: {name} {dtype}")
-        return err
+        errs[kernel] = max(errs.get(kernel, 0.0), err)
 
     def routed(c, call):
         """call(), which must make one launch, and the kernel it took; it
@@ -220,122 +231,126 @@ def phase_kernels(card: str):
             raise AssertionError(f"launch took {took}, planned {want}")
         return got, want
 
-    # (case, the kernel it must take): bf16 decode and verify take the
-    # decode route; the chunk path, fp32 and the long span the general one
+    def run(c):
+        return pa.paged_attention(c["q"], c["k"], c["v"], c["pt"], c["base"],
+                                  c["limit"], sm_scale=c["sm"])
+
+    def held(name, c, call=None):
+        """One launch of case c (through ``call``, or paged_attention with
+        the case's limit), held to the plain version; the kernel it took."""
+        got, kernel = routed(c, call or (lambda: run(c)))
+        want = pa.paged_attention_reference(
+            c["q"], c["k"], c["v"], c["pt"], c["base"], c["limit"],
+            sm_scale=c["sm"])
+        check(name, got, want, c["q"].dtype, kernel)
+        return got, kernel
+
+    def at(*xs):
+        return torch.tensor(xs, device="cuda")
+
+    # (case, dtype) -> the kernel it took: bf16 decode and verify take the
+    # decode route, bf16 chunks the chunk route, fp32 and D=256 the general
+    # kernel
     routes = {}
     cases = {}
-    errs = {}
+    full = 16 * 128                             # the table span
     for dtype in (torch.bfloat16, torch.float32):
         for b, seed in ((1, 1), (32, 2)):
             c = paged_case(b, 1, dtype, seed=seed)
-            got, routes[f"decode B={b}", dtype] = routed(
-                c, lambda c=c: pa.paged_decode_attention(
+            c["limit"] = torch.full_like(c["base"], full)
+            _, routes[f"decode B={b}", dtype] = held(
+                f"decode B={b}", c, lambda c=c: pa.paged_decode_attention(
                     c["q"][:, 0], c["k"], c["v"], c["pt"], c["base"],
-                    sm_scale=c["sm"]))
-            want = pa.paged_attention_reference(
-                c["q"], c["k"], c["v"], c["pt"], c["base"],
-                torch.full_like(c["base"], 16 * 128), sm_scale=c["sm"])[:, 0]
-            errs[("decode", b, dtype)] = check(f"decode B={b}", got, want,
-                                               dtype)
+                    sm_scale=c["sm"])[:, None])
             cases[("decode", b, dtype)] = c
         # a row with no live key (limit 0: uniform over the table span)
         # and spans that end mid-page and mid-tile
-        c = paged_case(4, 1, dtype, seed=6,
-                       base=torch.tensor([10, 200, 1000, 2040],
-                                         device="cuda"),
-                       limit=torch.tensor([0, 130, 1001, 2048],
-                                          device="cuda"))
-        got, routes["decode B=4 limit 0, mid-page ends", dtype] = routed(
-            c, lambda c=c: pa.paged_attention(
-                c["q"], c["k"], c["v"], c["pt"], c["base"], c["limit"],
-                sm_scale=c["sm"]))
-        want = pa.paged_attention_reference(
-            c["q"], c["k"], c["v"], c["pt"], c["base"], c["limit"],
-            sm_scale=c["sm"])
-        errs[("decode", 4, dtype)] = check(
-            "decode B=4 limit 0, mid-page ends", got, want, dtype)
+        c = paged_case(4, 1, dtype, seed=6, base=at(10, 200, 1000, 2040),
+                       limit=at(0, 130, 1001, 2048))
+        _, routes["decode B=4 limit 0, mid-page ends", dtype] = held(
+            "decode B=4 limit 0, mid-page ends", c)
         c = paged_case(8, 5, dtype, seed=3)
-        got, routes["verify B=8 T=5", dtype] = routed(
-            c, lambda c=c: pa.paged_verify_attention(
+        c["limit"] = torch.full_like(c["base"], full)
+        _, routes["verify B=8 T=5", dtype] = held(
+            "verify B=8 T=5", c, lambda c=c: pa.paged_verify_attention(
                 c["q"], c["k"], c["v"], c["pt"], c["base"],
                 sm_scale=c["sm"]))
-        want = pa.paged_attention_reference(
-            c["q"], c["k"], c["v"], c["pt"], c["base"],
-            torch.full_like(c["base"], 16 * 128), sm_scale=c["sm"])
-        errs[("verify", 8, dtype)] = check("verify B=8 T=5", got, want, dtype)
-        base = torch.tensor([512], device="cuda")
-        limit = torch.tensor([900], device="cuda")
-        c = paged_case(1, 512, dtype, seed=4, base=base, limit=limit)
-        got, routes["chunk C=512", dtype] = routed(
-            c, lambda c=c: pa.paged_chunk_attention(
+        c = paged_case(1, 512, dtype, seed=4, base=at(512), limit=at(900))
+        got, routes["chunk C=512", dtype] = held(
+            "chunk C=512 start=512 len=900", c,
+            lambda c=c: pa.paged_chunk_attention(
                 c["q"], c["k"], c["v"], c["pt"][0], 512, 900,
                 sm_scale=c["sm"]))
-        want = pa.paged_attention_reference(
-            c["q"], c["k"], c["v"], c["pt"], c["base"], c["limit"],
-            sm_scale=c["sm"])
-        errs[("chunk", 512, dtype)] = check("chunk C=512 start=512 len=900",
-                                            got, want, dtype)
         cases[("chunk", 512, dtype)] = c
+        if dtype == torch.bfloat16:
+            again, _ = routed(c, lambda c=c: run(c))
+            torch.cuda.synchronize()
+            if not torch.equal(got, again):
+                raise AssertionError("two runs of the C=512 chunk differ")
+            log("  chunk C=512: two runs bit-identical")
         # the general kernel on its recompute path (a table span too long
         # to keep even one row's scores in shared memory), at D=256
         c = paged_case(2, 3, dtype, seed=5, d=256, max_pages=336,
                        hkv=2, n_rep=4)
-        got, routes["recompute D=256", dtype] = routed(
-            c, lambda c=c: pa.paged_attention(
-                c["q"], c["k"], c["v"], c["pt"], c["base"], c["limit"],
-                sm_scale=c["sm"]))
-        want = pa.paged_attention_reference(
-            c["q"], c["k"], c["v"], c["pt"], c["base"], c["limit"],
-            sm_scale=c["sm"])
         assert not pa.launch_plan(12, 256, 336 * 128)[1]
-        check("recompute path D=256 span=43008", got, want, dtype)
-    decode_cases = ("decode B=1", "decode B=32",
-                    "decode B=4 limit 0, mid-page ends", "verify B=8 T=5")
+        _, routes["recompute D=256", dtype] = held(
+            "recompute path D=256 span=43008", c)
+    # the chunk route's shapes (bf16): ragged chunks, first chunks, other
+    # page sizes, head dims and n_rep, and a slot with no live key
+    for i, (name, c) in enumerate((
+            ("chunk C=512 first chunk",
+             dict(t=512, base=at(0), limit=at(512))),
+            ("chunk C=200 start=300 len=480",
+             dict(t=200, base=at(300), limit=at(480))),
+            ("chunk C=256 D=64 pages of 16",
+             dict(t=256, base=at(100), limit=at(356), d=64, page=16,
+                  max_pages=128)),
+            ("chunk C=256 n_rep 1",
+             dict(t=256, base=at(64), limit=at(320), hkv=16, n_rep=1)),
+            ("chunk C=256 n_rep 4 pages of 32",
+             dict(t=256, base=at(64), limit=at(300), hkv=4, n_rep=4,
+                  page=32, max_pages=64)),
+            ("chunk B=2 T=64 limit 0 pages of 8",
+             dict(b=2, t=64, base=at(10, 600), limit=at(0, 700), page=8,
+                  max_pages=128)))):
+        c = paged_case(c.pop("b", 1), c.pop("t"), torch.bfloat16,
+                       seed=20 + i, **c)
+        _, routes[name, torch.bfloat16] = held(name, c)
     for (name, dtype), kernel in routes.items():
-        want = ("paged_decode_hopper" if dtype == torch.bfloat16
-                and name in decode_cases else "paged_attention_kernel")
+        want = ("paged_attention_kernel" if dtype == torch.float32
+                or name.startswith("recompute") else "paged_chunk_hopper"
+                if name.startswith("chunk") else "paged_decode_hopper")
         if kernel != want:
             raise AssertionError(f"{name} {dtype} took {kernel}, not {want}")
-    log("  routes: bf16 decode and verify -> paged_decode_hopper; chunk, "
-        "fp32 and the D=256 recompute case -> paged_attention_kernel")
+    log("  routes: bf16 decode and verify -> paged_decode_hopper; bf16 "
+        "chunks -> paged_chunk_hopper; fp32 and the D=256 recompute case "
+        "-> paged_attention_kernel")
 
     timings = []
-    for kind, key, err_keys in (
-            ("decode", ("decode", 32, torch.bfloat16),
-             [("decode", b, torch.bfloat16) for b in (1, 4, 32)]
-             + [("verify", 8, torch.bfloat16)]),
-            ("chunk", ("chunk", 512, torch.bfloat16),
-             [("chunk", 512, torch.bfloat16)])):
+    for kind, key in (("decode", ("decode", 32, torch.bfloat16)),
+                      ("chunk", ("chunk", 512, torch.bfloat16)),
+                      ("general", ("chunk", 512, torch.float32))):
         c = cases[key]
-        limit = c["limit"] if kind == "chunk" else torch.full_like(
-            c["base"], 16 * 128)
-
-        def kernel(c=c, limit=limit):
-            return pa.paged_attention(c["q"], c["k"], c["v"], c["pt"],
-                                      c["base"], limit, sm_scale=c["sm"])
-
-        def plain(c=c, limit=limit):
-            return pa.paged_attention_reference(
-                c["q"], c["k"], c["v"], c["pt"], c["base"], limit,
-                sm_scale=c["sm"])
-
-        name = routed(c, kernel)[1]
-        bc = dict(c, limit=limit)
-        bound, bound_by = paged_bound(bc)
-        ms, plain_ms = time_ms(kernel), time_ms(plain)
-        dev_ms = device_ms(kernel)
+        name = routed(c, lambda c=c: run(c))[1]
+        bound, bound_by = paged_bound(c)
+        ms, plain_ms = time_ms(lambda c=c: run(c)), time_ms(
+            lambda c=c: pa.paged_attention_reference(
+                c["q"], c["k"], c["v"], c["pt"], c["base"], c["limit"],
+                sm_scale=c["sm"]))
+        dev_ms = device_ms(lambda c=c: run(c))
         live = int(torch.minimum(c["base"] + c["q"].shape[1],
-                                 limit).sum())
-        log(f"  time {kind:<6} B={c['q'].shape[0]} T={c['q'].shape[1]} "
-            f"bf16 live_keys={live} ({name}): kernel {ms:.4f} ms (device "
+                                 c["limit"]).sum())
+        dtype = str(c["q"].dtype).replace("torch.", "")
+        log(f"  time {kind:<7} B={c['q'].shape[0]} T={c['q'].shape[1]} "
+            f"{dtype} live_keys={live} ({name}): kernel {ms:.4f} ms (device "
             f"{dev_ms:.4f}), plain {plain_ms:.4f} ms, bound {bound:.4f} ms "
             f"({bound_by}); library: none (no single PyTorch call attends "
             f"through a page table) [{card}]")
         timings.append({"name": f"paged_attention/{kind}", "route": "cuda",
-                        "kernel": name,
+                        "kernel": name, "dtype": dtype,
                         "source": "ray_torch/ops/csrc/paged_attention.cu",
                         "replaces": "ray_tpu/ops/paged_attention.py:77",
-                        "max_abs_err": max(errs[k] for k in err_keys),
+                        "max_abs_err": errs[name],
                         "ms": ms, "device_ms": dev_ms,
                         "plain_ms": plain_ms, "bound_ms": bound,
                         "bound_by": bound_by, "library_ms": None,
@@ -358,8 +373,13 @@ def phase_identity():
     waves = [[shared + " and keeps running far past the fence",  # > chunk
               "abc abc abc", "hello"],
              [shared + " once more"]]                        # prefix hit
+    from ray_torch.ops import paged_attention as pa
+
     outs = {}
     for kernel in ("cuda", "gather"):
+        if kernel == "cuda":                # count this engine's run only
+            for name in pa.launches:
+                pa.launches[name] = 0
         eng = LLMEngine(LLMConfig(
             model_config=mcfg, device="cuda", attention_kernel=kernel,
             max_batch_size=4, page_size=8, num_pages=64, max_prompt_len=64,
@@ -377,6 +397,8 @@ def phase_identity():
             stats = eng.engine_stats()
         finally:
             eng.shutdown()
+        if kernel == "cuda":
+            launches = dict(pa.launches)
         assert stats["attention_backend"] == kernel, stats["attention_backend"]
         assert stats["prefix_hits"] >= 1 and stats["attn_chunk_dispatches"] > 0
         outs[kernel] = toks
@@ -386,6 +408,12 @@ def phase_identity():
     log(f"  llama_tiny fp32: {len(outs['cuda'])} requests, "
         f"{sum(map(len, outs['cuda']))} greedy tokens identical "
         "(kernel vs gather; prefix hit + chunked prefill on the path)")
+    log(f"  kernel launches of the fp32 engine run: "
+        + ", ".join(f"{k} {v}" for k, v in launches.items()))
+    if not launches["paged_attention_kernel"] > 0:
+        raise AssertionError(f"the fp32 engine run did not launch "
+                             f"paged_attention_kernel: {launches}")
+    return launches
 
 
 # ---------------------------------------------------------------------------
@@ -484,9 +512,21 @@ def phase_serve(card: str):
                 "prefix_hits"):
         if not stats[key] > 0:
             raise AssertionError(f"engine_stats {key}={stats[key]}")
-    if not all(v > 0 for v in launches.values()):
-        raise AssertionError(f"a paged kernel was not launched on the main "
-                             f"path: {launches}")
+    # every prefill chunk (16 rows or more a rep, so past the decode
+    # route's 16 rows) on the chunk route, every decode step on the decode
+    # route: in bf16 serving nothing is left for paged_attention_kernel
+    layers = cfg.model_config.n_layers
+    log(f"  paged_attention_kernel launches on the bf16 serving path: "
+        f"{launches['paged_attention_kernel']} (0 expected)")
+    if not (launches["paged_decode_hopper"] > 0
+            and launches["paged_chunk_hopper"]
+            == layers * stats["attn_chunk_dispatches"] > 0
+            and launches["paged_attention_kernel"] == 0):
+        raise AssertionError(f"the serving path's paged launches {launches} "
+                             f"are not {stats['attn_chunk_dispatches']} "
+                             f"chunks x {layers} layers on "
+                             f"paged_chunk_hopper and the decode steps on "
+                             f"paged_decode_hopper")
     if not paged_ms["paged_decode_hopper"] > 0:
         raise AssertionError("the profiled wave ran no paged_decode_hopper")
     ttfts = [r["ray_tpu"]["ttft_s"] for r in results[:10]]
@@ -974,6 +1014,89 @@ def phase_flash_vs_dense():
         raise AssertionError("llama3_1b: flash and dense steps disagree")
 
 
+# ---------------------------------------------------------------------------
+# phase 8: int8_matmul on the card
+# ---------------------------------------------------------------------------
+
+def phase_int8(card: str):
+    """``mlp_impl="int8"``'s product, forward and backward, at the training
+    shape (x [B * T, dim] @ w_gate [dim, ffn] of llama3_1b at batch 4 x
+    2048) and at an 8-row decode shape, against the dequantized plain
+    product. The forward must be exact (an int32 product of the same int8
+    operands, scaled by the same fp32 factor); the backward is held to
+    fp32 products of the operands dequantized to bf16 (the reference's
+    straight-through backward) within the bf16 tolerance: the two differ
+    in the order of fp32 sums and in the output's rounding to bf16, half
+    an ulp (2^-9 relative). First the card says
+    which row counts ``torch._int_mm`` refuses: the product must pad
+    exactly those."""
+    from ray_torch.models import llama
+
+    cfg = llama.llama3_1b(mlp_impl="int8")
+    k, n = cfg.dim, cfg.ffn_dim
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(13)
+    for m, kk, nn in ((1, k, n), (8, k, n), (16, k, n), (17, k, n),
+                      (24, k, n), (8192, k, n), (32, k - 4, n),
+                      (32, k, n - 4)):
+        a = torch.randint(-127, 128, (m, kk), generator=g, device=dev,
+                          dtype=torch.int8)
+        b = torch.randint(-127, 128, (kk, nn), generator=g, device=dev,
+                          dtype=torch.int8)
+        try:
+            torch._int_mm(a, b)
+            torch.cuda.synchronize()
+            answer = "takes it"
+        except RuntimeError as e:
+            answer = f"refuses it ({str(e).splitlines()[0][:100]})"
+        try:
+            rows = llama._int_mm_rows(m, kk, nn, dev)
+            ours = f"int8_matmul runs it at {rows} rows"
+            refused = rows != m
+        except ValueError as e:
+            ours, refused = f"int8_matmul raises ({e})", True
+        log(f"  torch._int_mm [{m}, {kk}] @ [{kk}, {nn}]: the card {answer}; "
+            f"{ours}")
+        if answer.startswith("refuses") != refused:
+            raise AssertionError(f"int8_matmul at [{m}, {kk}] @ [{kk}, {nn}]: "
+                                 f"{ours}, but the card {answer}")
+    for m in (TRAIN_BATCH * TRAIN_SEQ, 8):
+        x = torch.randn(m, k, generator=g, device=dev).to(torch.bfloat16)
+        w = (0.02 * torch.randn(k, n, generator=g, device=dev)).to(
+            torch.bfloat16)
+        dout = torch.randn(m, n, generator=g, device=dev).to(torch.bfloat16)
+        xl, wl = x.clone().requires_grad_(), w.clone().requires_grad_()
+        out = llama._mlp_matmul(xl, wl, cfg)
+        out.backward(dout)
+        out = out.detach()
+        xq, xs = llama._quantize_int8(x)
+        wq, ws = llama._quantize_int8(w)
+        # integer sums below 2^53: exact in float64
+        want = ((xq.double() @ wq.double()).float() * (xs * ws)).to(
+            torch.bfloat16)
+        xd, wd = ((t.float() * s).to(torch.bfloat16).float()
+                  for t, s in ((xq, xs), (wq, ws)))
+        want_dx, want_dw = dout.float() @ wd.T, xd.T @ dout.float()
+        torch.cuda.synchronize()
+        errs = [float((got.float() - ref.float()).abs().max())
+                for got, ref in ((out, want), (xl.grad, want_dx),
+                                 (wl.grad, want_dw))]
+        tol = TOL[torch.bfloat16]
+        ok = (torch.equal(out, want)
+              and all(bool(((got.float() - ref).abs()
+                            <= tol * (1 + ref.abs())).all())
+                      for got, ref in ((xl.grad, want_dx),
+                                       (wl.grad, want_dw))))
+        log(f"  int8_matmul x [{m}, {k}] @ w [{k}, {n}] bf16: forward "
+            f"max_abs_err={errs[0]:.3e} (exact), dx {errs[1]:.3e}, dw "
+            f"{errs[2]:.3e} (tol {tol:g} * (1 + |ref|)) "
+            f"{'ok' if ok else 'FAIL'} [{card}]")
+        if not ok:
+            raise AssertionError(f"int8_matmul disagrees with the "
+                                 f"dequantized product at {m} rows")
+        del x, w, dout, xl, wl, out, want, want_dx, want_dw, xd, wd
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
@@ -1008,7 +1131,7 @@ def main() -> int:
 
     log("[3] greedy identity, kernel vs gather")
     t0 = time.perf_counter()
-    phase_identity()
+    identity_launches = phase_identity()
     log(f"  phase 3: {time.perf_counter() - t0:.1f} s")
 
     log("[4] main path: LLMServer, llama3_1b at full width")
@@ -1016,8 +1139,12 @@ def main() -> int:
     params, launches = phase_serve(card)
     phase_logits(params)
     log(f"  phase 4: {time.perf_counter() - t0:.1f} s")
-    for k in kernels:
-        k["launches"] = launches[k["kernel"]]
+    for k in kernels:         # each kernel's count on the path it serves
+        general = k["kernel"] == "paged_attention_kernel"
+        k["launches"] = (identity_launches if general else
+                         launches)[k["kernel"]]
+        k["launches_on"] = ("phase 3: llama_tiny fp32 engine" if general
+                            else "phase 4: llama3_1b bf16 serving")
     del params
     torch.cuda.empty_cache()
 
@@ -1038,7 +1165,13 @@ def main() -> int:
     log("[7] flash kernels vs the dense path, end to end")
     t0 = time.perf_counter()
     phase_flash_vs_dense()
-    log(f"  phase 7: {time.perf_counter() - t0:.1f} s; total "
+    log(f"  phase 7: {time.perf_counter() - t0:.1f} s")
+    torch.cuda.empty_cache()
+
+    log("[8] int8_matmul on the card")
+    t0 = time.perf_counter()
+    phase_int8(card)
+    log(f"  phase 8: {time.perf_counter() - t0:.1f} s; total "
         f"{time.perf_counter() - t_all:.1f} s")
 
     print(json.dumps({"kernels": kernels + flash}))

@@ -255,11 +255,15 @@ def dense_attention(q, k, v, n_rep: int, sm_scale: float, mask):
 
 
 def embed(params: dict, tokens: torch.Tensor, cfg: LlamaConfig):
-    """Token embeddings in ``cfg.dtype``. Ids past the table read its last
-    row, as the reference's clamped JAX gather does — e.g. the byte
-    tokenizer's BOS (256) on llama_tiny's 256-row table."""
+    """Token embeddings in ``cfg.dtype``, indexed as the reference's JAX
+    gather ``params["embed"][tokens]`` indexes: an id below 0 counts from
+    the end (id + V), then ids are clamped to [0, V-1]. So an id past the
+    table reads its last row (the byte tokenizer's BOS, 256, on
+    llama_tiny's 256-row table) and -1 (a verify pad) reads row V-1."""
     table = params["embed"]
-    return table[tokens.clamp(0, table.shape[0] - 1)].to(cfg.dtype)
+    v = table.shape[0]
+    return table[torch.where(tokens < 0, tokens + v, tokens)
+                 .clamp(0, v - 1)].to(cfg.dtype)
 
 
 def _proj_heads(h: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -308,17 +312,52 @@ def _quantize_int8(t: torch.Tensor):
     return q.to(torch.int8), s
 
 
+# Shapes that CUDA's torch._int_mm takes, as the card answers them
+# (chip_smoke.py phase 8 asks it at every row count it pads): more than 16
+# rows, and K and N multiples of 8. The CPU's takes any shape.
+_INT_MM_MIN_ROWS = 17
+_INT_MM_KN_MULTIPLE = 8
+
+
+def _int_mm_rows(m: int, k: int, n: int, device: torch.device) -> int:
+    """The row count an [m, k] @ [k, n] int8 product is run at: m, or on
+    a CUDA device the fewest rows ``_int_mm`` takes. Raises where the card
+    refuses K or N: there is no other path to take."""
+    if device.type != "cuda":
+        return m
+    if k % _INT_MM_KN_MULTIPLE or n % _INT_MM_KN_MULTIPLE:
+        raise ValueError(
+            f"int8_matmul on CUDA takes K and N multiples of "
+            f"{_INT_MM_KN_MULTIPLE} (torch._int_mm), got x [{m}, {k}] @ "
+            f"w [{k}, {n}]")
+    return max(m, _INT_MM_MIN_ROWS)
+
+
+def _int_mm_padded(a: torch.Tensor, b: torch.Tensor, rows: int):
+    """``torch._int_mm(a, b)`` with a's rows padded with zeros up to
+    ``rows`` and the product sliced back to a's rows. Exact: each output
+    row depends on its own input row only."""
+    m = a.shape[0]
+    if rows > m:
+        a = torch.cat([a, a.new_zeros(rows - m, a.shape[1])])
+    return torch._int_mm(a, b)[:m]
+
+
 class _Int8Matmul(torch.autograd.Function):
     """x @ w with both operands quantized to int8 per tensor, an int32
-    product (``torch._int_mm``), scaled back in fp32. The backward is
-    straight-through from the saved int8 residuals, dequantized to the
-    gradient's dtype (the reference's ``_int8_matmul_bwd``)."""
+    product (``torch._int_mm``, its rows padded with zeros where the card
+    takes no fewer: zero rows leave the per-tensor scale max|x| / 127 as
+    it is), scaled back in fp32. The backward is straight-through from the
+    saved int8 residuals, dequantized to the gradient's dtype (the
+    reference's ``_int8_matmul_bwd``)."""
 
     @staticmethod
     def forward(ctx, x, w):
         xq, xs = _quantize_int8(x)
         wq, ws = _quantize_int8(w)
-        acc = torch._int_mm(xq.reshape(-1, xq.shape[-1]), wq)
+        x2 = xq.reshape(-1, xq.shape[-1])
+        acc = _int_mm_padded(x2, wq, _int_mm_rows(*x2.shape, wq.shape[1],
+                                                  x2.device))
         out = (acc.float() * (xs * ws)).to(x.dtype)
         ctx.save_for_backward(xq, xs, wq, ws)
         return out.reshape(*x.shape[:-1], w.shape[-1])

@@ -34,17 +34,20 @@
 //  - the n_rep query heads of a kv head share the block (GQA rows are
 //    kv-major, row = rep * T + t, as in the reference), so a K/V page is read
 //    from device memory once per row tile, not once per query head;
-//  - two kernels. bf16 decode and verify (at most 16 query rows a slot and
-//    kv head) take paged_decode_hopper, which streams the live K and then
-//    V pages through a ring of bf16 tiles in shared memory with bulk
+//  - three kernels. bf16 decode and verify (at most 16 query rows a slot
+//    and kv head) take paged_decode_hopper, which streams the live K and
+//    then V pages through a ring of bf16 tiles in shared memory with bulk
 //    copies (cp.async.bulk) on mbarriers, so copies stay in flight while
-//    all 8 warps compute (its note below). The chunk path, fp32 and spans
-//    whose scores do not fit take paged_attention_kernel: K/V tiles staged
-//    through shared memory as fp32 by 16-byte vector loads, the tile's
-//    fp32 scores kept in shared memory when rows * table_span * 4 B fits
-//    in the 227 KB (16 rows of a 2,048-token span take 128 KB) and
-//    recomputed in each pass otherwise.
-// Tensor cores (wgmma) for the chunk path are later work.
+//    all 8 warps compute (its note below). bf16 launches of more rows (the
+//    chunked prefill) at D = 64 or 128 with pages that tile a 64-key tile
+//    take paged_chunk_hopper: TMA page loads into a ring of swizzled tiles
+//    and wgmma for Q K^T and P V, the three passes recomputing S on the
+//    tensor cores (its note below). fp32, other head dims and page sizes
+//    take paged_attention_kernel: K/V tiles staged through shared memory
+//    as fp32 by 16-byte vector loads, the tile's fp32 scores kept in
+//    shared memory when rows * table_span * 4 B fits in the 227 KB (16
+//    rows of a 2,048-token span take 128 KB) and recomputed in each pass
+//    otherwise.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -359,9 +362,9 @@ cudaError_t launch_typed(const void* q, const void* k_pages,
 // (slot, kv head) has at most kDecodeMaxRows query rows (decode: n_rep;
 // verify: n_rep (k + 1)), D is 64 or 128, and the rows' fp32 scores over
 // the table span fit in shared memory (ray_torch/ops/paged_attention.py::
-// decode_rows plans it); everything else stays on paged_attention_kernel.
-// The numerics are that kernel's, to the float, but for the order of the
-// fp32 sums (q.k, l and p.V).
+// decode_rows plans it); bf16 launches of more rows take the chunk route
+// below, the rest paged_attention_kernel. The numerics are that kernel's,
+// to the float, but for the order of the fp32 sums (q.k, l and p.V).
 //
 // Grid (Hkv, B); 8 consumer warps and one producer warp a block. Lane 0 of
 // the producer streams the slot's live K columns, then its live V columns,
@@ -720,6 +723,390 @@ cudaError_t launch_decode_rows(const DecodeArgs& a, int rows, int batch,
   }
 }
 
+// ---------------------------------------------------------------------------
+// bf16 chunked prefill: paged_chunk_hopper. A launch takes it when a (slot,
+// kv head) has more than kDecodeMaxRows query rows, D is 64 or 128, and a
+// page is a multiple of 8 keys that divides kChunkKeys or a multiple of it
+// (ray_torch/ops/paged_attention.py::chunk_plan plans it). The numerics are
+// paged_attention_kernel's, to the float, but for the order of the fp32
+// sums (q.k and p.V inside wgmma, l and O over the two consumers).
+//
+// Bound: operations. A 512-token chunk at llama3_1b (n_rep 2, D 128) does
+// 4 D flop per (row, live key) on 3.7 MB of K/V, ~700 flop/byte, above
+// the bf16 ridge. So the products run on the tensor cores (wgmma), and the
+// exact three-pass softmax recomputes S = Q K^T in each pass rather than
+// keeping fp32 scores (the identity contract forbids an online rescale).
+// What bounds the kernel in practice is each tile's chain of wgmma waits
+// and per-score softmax work (IEEE expf and division), so a block's key
+// tiles are split over two consumer warpgroups.
+//
+// Grid (units, Hkv, B). A unit is kChunkRows query rows of one rep at
+// consecutive positions (u = position tile * n_rep + rep). Warpgroup 0 is
+// the producer (one thread issues every TMA load; setmaxnreg gives its
+// registers away); consumer warpgroup c takes the unit's key tiles kt = c,
+// c + 2, ... through a ring of its own. The producer loads the unit's Q
+// tile once (a 4-d map over q [B, T, H, D]; positions past T read as zeros
+// and are never written), then streams the block's live span [0, hi)
+// three times as 64-key tiles: K for pass 1, K for pass 2, then K and V
+// for pass 3. A tile is 64 / page boxes (page <= 64) or one box (page >=
+// 64) of a 4-d map over the pool [Hkv, P, page, D] at (d, key in page,
+// page_tables[b][c / page], g), landing in the 128-byte swizzled layout:
+// desc_kmajor reads it as K for S = Q K^T, desc_mnmajor as V for O += P V,
+// so V needs no transpose copy.
+//  pass 1: S by wgmma, q.k rounded to bf16, scaled, masked (-1e30 past a
+//          row's valid length; -inf, i.e. no column at all, past hi), and
+//          maxed; the two consumers' maxes give the exact row max m;
+//  pass 2: the same S (same tiles, same instructions: bit-identical), and
+//          l = sum expf(s - m), the two consumers' sums added in order;
+//  pass 3: the same S, p = bf16(expf(s - m) / l) packed into wgmma's A
+//          fragments in registers (acc_to_a), O += P V by wgmma; consumer
+//          1's O is added to consumer 0's through its drained ring.
+// A row's 64 columns of a tile sit in one quad of lanes (the m64 layout),
+// so the row max and sum are quad shuffles. No atomics: each block owns
+// its output rows and adds in a fixed order, so reruns are bit-identical.
+// ---------------------------------------------------------------------------
+
+constexpr int kChunkConsumers = 2;    // consumer warpgroups, each every
+                                      // other key tile of the block's unit
+constexpr int kChunkThreads = 128 * (1 + kChunkConsumers);
+constexpr int kChunkRows = 64;        // query rows of a unit (a block)
+constexpr int kChunkKeys = 64;        // keys of a ring tile
+constexpr int kChunkStages = 4;       // ring tiles of each consumer
+constexpr int kChunkProducerRegs = 40;   // 128 x 40 + 256 x 232 <= 65,536
+constexpr int kChunkConsumerRegs = 232;
+
+__device__ __forceinline__ unsigned char* align_1024(unsigned char* p) {
+  return reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(p) + 1023) & ~uintptr_t(1023));
+}
+
+__device__ __forceinline__ float quad_max(float v) {
+  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
+  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
+}
+
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  return v + __shfl_xor_sync(0xffffffffu, v, 2);
+}
+
+struct ChunkArgs {
+  const int* page_tables;
+  const int* base;
+  const int* limit;
+  bf16* out;
+  int t_span, heads, n_rep, page_size, max_pages;
+  float sm_scale;
+};
+
+// The masked, scaled scores of the unit's 64 rows against one K tile of
+// columns [c0, c0 + 64): the m64n64 accumulator layout, the thread's rows
+// 16 w + g and 16 w + g + 8 with valid lengths valid[0] and valid[1].
+// `mask` false: every column is below every row's valid length.
+template <int D>
+__device__ __forceinline__ void chunk_scores(float (&sc)[kChunkKeys / 2],
+                                             uint32_t q_tile, uint32_t k_tile,
+                                             int c0, bool mask, int hi,
+                                             const int (&valid)[2], int t4,
+                                             float sm_scale) {
+  hopper::wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk)
+    hopper::Wgmma<kChunkKeys>::ss<0, 0>(
+        sc, hopper::desc_kmajor<D, kChunkRows>(q_tile, 0, kk),
+        hopper::desc_kmajor<D, kChunkKeys>(k_tile, 0, kk), kk > 0);
+  hopper::wgmma_commit();
+  hopper::wgmma_wait<0>();
+  hopper::fence_regs(sc);
+#pragma unroll
+  for (int i = 0; i < kChunkKeys / 8; ++i)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const int col = c0 + 8 * i + 2 * t4 + (r & 1);
+      const float x =
+          __bfloat162float(__float2bfloat16(sc[4 * i + r])) * sm_scale;
+      sc[4 * i + r] = !mask ? x
+                      : col >= hi ? -INFINITY
+                      : col < valid[r >> 1] ? x : kMasked;
+    }
+}
+
+template <int D>
+__global__ void __launch_bounds__(kChunkThreads, 1)
+    paged_chunk_hopper(const __grid_constant__ CUtensorMap q_map,
+                       const __grid_constant__ CUtensorMap k_map,
+                       const __grid_constant__ CUtensorMap v_map,
+                       const ChunkArgs a) {
+  using Tl = hopper::Tile<D>;
+  constexpr int kQBytes = 2 * kChunkRows * D;
+  constexpr int kTileBytes = 2 * kChunkKeys * D;
+  constexpr int kRing = kChunkStages * kTileBytes;      // a consumer's ring
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* q_s = align_1024(smem_raw);
+  unsigned char* ring = q_s + kQBytes;                  // [consumers] rings
+  float* red_m = reinterpret_cast<float*>(ring + kChunkConsumers * kRing);
+  float* red_l = red_m + kChunkConsumers * kChunkRows;  // [consumer][row]
+  uint64_t* q_full =
+      reinterpret_cast<uint64_t*>(red_l + kChunkConsumers * kChunkRows);
+  uint64_t* full = q_full + 1;                          // [consumer][stage]
+  uint64_t* empty = full + kChunkConsumers * kChunkStages;
+  int* pt_s = reinterpret_cast<int*>(empty + kChunkConsumers * kChunkStages);
+
+  const int u = blockIdx.x, g = blockIdx.y, b = blockIdx.z;
+  const int t_first = u / a.n_rep * kChunkRows;
+  const int head = g * a.n_rep + u % a.n_rep;
+  const int max_len = a.max_pages * a.page_size;
+  const int bs = a.base[b], lm = a.limit[b];
+  // live columns, as paged_attention_kernel bounds them: row t sees col <
+  // valid(t) = min(limit, base + t + 1, max_len), which grows with t; the
+  // block reads col < hi, the valid of its last row, or the whole table
+  // span when a row has no live key (its dense softmax is then uniform)
+  const int first = min(min(lm, bs + t_first + 1), max_len);
+  const int t_last = min(t_first + kChunkRows, a.t_span) - 1;
+  const int hi = first <= 0 ? max_len : min(min(lm, bs + t_last + 1), max_len);
+  const int n = (hi + kChunkKeys - 1) / kChunkKeys;     // tiles a pass
+
+  if (threadIdx.x == 0) {
+    hopper::mbar_init(q_full, 1);
+    for (int s = 0; s < kChunkConsumers * kChunkStages; ++s) {
+      hopper::mbar_init(&full[s], 1);
+      hopper::mbar_init(&empty[s], 4);                  // the consumer's warps
+    }
+    hopper::mbar_init_fence();
+  }
+  for (int i = threadIdx.x; i < a.max_pages; i += kChunkThreads)
+    pt_s[i] = a.page_tables[(size_t)b * a.max_pages + i];
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  if (wg == 0) {
+    hopper::regs_dec<kChunkProducerRegs>();
+    if (threadIdx.x == 0) {
+      hopper::mbar_arrive_expect_tx(q_full, kQBytes);
+      for (int cb = 0; cb < Tl::kBoxes; ++cb)
+        hopper::tma_load_4d(q_s + cb * kChunkRows * Tl::kRowBytes, &q_map,
+                            q_full, cb * Tl::kBoxCols, head, t_first, b);
+      // K tiles 0..n-1 for pass 1 and for pass 2, then K, V, K, V, ...
+      // for pass 3; tile kt goes to consumer kt % 2's ring, where it is
+      // item j of that consumer's sequence
+      const int box_keys = min(kChunkKeys, a.page_size);
+      for (int pass = 0; pass < 3; ++pass)
+        for (int kt = 0; kt < n; ++kt)
+          for (int v = 0; v < (pass == 2 ? 2 : 1); ++v) {
+            const int c = kt % kChunkConsumers;
+            const int tiles = (n - c + kChunkConsumers - 1) / kChunkConsumers;
+            const int k = kt / kChunkConsumers;
+            const int j = pass < 2 ? pass * tiles + k : 2 * tiles + 2 * k + v;
+            const int s = c * kChunkStages + j % kChunkStages;
+            if (j >= kChunkStages)
+              hopper::mbar_wait(&empty[s], (j / kChunkStages - 1) & 1);
+            hopper::mbar_arrive_expect_tx(&full[s], kTileBytes);
+            unsigned char* dst = ring + s * kTileBytes;
+            for (int jk = 0; jk < kChunkKeys; jk += box_keys) {
+              // columns past the table span (a span that ends mid-tile)
+              // read a page of the table; they are no column of any row
+              const int col = kt * kChunkKeys + jk;
+              const int page = pt_s[min(col / a.page_size, a.max_pages - 1)];
+              for (int cb = 0; cb < Tl::kBoxes; ++cb)
+                hopper::tma_load_4d(
+                    dst + (cb * kChunkKeys + jk) * Tl::kRowBytes,
+                    v ? &v_map : &k_map, &full[s], cb * Tl::kBoxCols,
+                    col % a.page_size, page, g);
+            }
+          }
+    }
+    return;
+  }
+
+  hopper::regs_inc<kChunkConsumerRegs>();
+  const int c = wg - 1;
+  const int tid = threadIdx.x % 128;
+  const int warp = tid / 32, lane = tid % 32, gq = lane / 4, t4 = lane % 4;
+  const int row = 16 * warp + gq;                       // rows row, row + 8
+  int valid[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r)   // no live key: every column is -1e30
+    valid[r] = max(min(min(lm, bs + t_first + row + 8 * r + 1), max_len), 0);
+  uint64_t* my_full = full + c * kChunkStages;
+  uint64_t* my_empty = empty + c * kChunkStages;
+  unsigned char* my_ring = ring + c * kRing;
+  hopper::mbar_wait(q_full, 0);
+
+  float sc[kChunkKeys / 2];
+  int j = 0;                    // the consumer's ring items so far
+  // pass 1: the exact row max
+  float m[2] = {-INFINITY, -INFINITY};
+  for (int kt = c; kt < n; kt += kChunkConsumers, ++j) {
+    const int s = j % kChunkStages;
+    hopper::mbar_wait(&my_full[s], (j / kChunkStages) & 1);
+    const int c0 = kt * kChunkKeys;
+    chunk_scores<D>(sc, hopper::opaque_addr(q_s),
+                    hopper::smem_addr(my_ring + s * kTileBytes), c0,
+                    c0 + kChunkKeys > first, hi, valid, t4, a.sm_scale);
+    if (lane == 0) hopper::mbar_arrive(&my_empty[s]);
+#pragma unroll
+    for (int e = 0; e < kChunkKeys / 2; ++e)
+      m[(e >> 1) & 1] = fmaxf(m[(e >> 1) & 1], sc[e]);
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    m[r] = quad_max(m[r]);
+    if (t4 == 0) red_m[c * kChunkRows + row + 8 * r] = m[r];
+  }
+  hopper::bar_sync<1, 128 * kChunkConsumers>();
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    m[r] = red_m[row + 8 * r];
+    for (int cc = 1; cc < kChunkConsumers; ++cc)
+      m[r] = fmaxf(m[r], red_m[cc * kChunkRows + row + 8 * r]);
+  }
+
+  // pass 2: l = sum exp(s - m)
+  float l[2] = {0.f, 0.f};
+  for (int kt = c; kt < n; kt += kChunkConsumers, ++j) {
+    const int s = j % kChunkStages;
+    hopper::mbar_wait(&my_full[s], (j / kChunkStages) & 1);
+    const int c0 = kt * kChunkKeys;
+    chunk_scores<D>(sc, hopper::opaque_addr(q_s),
+                    hopper::smem_addr(my_ring + s * kTileBytes), c0,
+                    c0 + kChunkKeys > first, hi, valid, t4, a.sm_scale);
+    if (lane == 0) hopper::mbar_arrive(&my_empty[s]);
+#pragma unroll
+    for (int e = 0; e < kChunkKeys / 2; ++e)
+      l[(e >> 1) & 1] += expf(sc[e] - m[(e >> 1) & 1]);
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] = quad_sum(l[r]);
+    if (t4 == 0) red_l[c * kChunkRows + row + 8 * r] = l[r];
+  }
+  hopper::bar_sync<1, 128 * kChunkConsumers>();
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] = red_l[row + 8 * r];
+    for (int cc = 1; cc < kChunkConsumers; ++cc)
+      l[r] += red_l[cc * kChunkRows + row + 8 * r];
+  }
+
+  // pass 3: p = bf16(exp(s - m) / l) as A fragments, O += P V
+  float o[D / 2];
+#pragma unroll
+  for (int e = 0; e < D / 2; ++e) o[e] = 0.f;
+  for (int kt = c; kt < n; kt += kChunkConsumers, j += 2) {
+    const int s = j % kChunkStages;
+    hopper::mbar_wait(&my_full[s], (j / kChunkStages) & 1);
+    const int c0 = kt * kChunkKeys;
+    chunk_scores<D>(sc, hopper::opaque_addr(q_s),
+                    hopper::smem_addr(my_ring + s * kTileBytes), c0,
+                    c0 + kChunkKeys > first, hi, valid, t4, a.sm_scale);
+    if (lane == 0) hopper::mbar_arrive(&my_empty[s]);
+#pragma unroll
+    for (int e = 0; e < kChunkKeys / 2; ++e)
+      sc[e] = expf(sc[e] - m[(e >> 1) & 1]) / l[(e >> 1) & 1];
+    uint32_t pa[kChunkKeys / 16][4];
+#pragma unroll
+    for (int jj = 0; jj < kChunkKeys / 16; ++jj)
+      hopper::acc_to_a(sc, jj, pa[jj]);
+    const int sv = (j + 1) % kChunkStages;
+    hopper::mbar_wait(&my_full[sv], ((j + 1) / kChunkStages) & 1);
+    const uint32_t v_tile = hopper::smem_addr(my_ring + sv * kTileBytes);
+    hopper::wgmma_fence();
+#pragma unroll
+    for (int jj = 0; jj < kChunkKeys / 16; ++jj)
+      hopper::Wgmma<D>::template rs<1>(
+          o, pa[jj], hopper::desc_mnmajor<D, kChunkKeys>(v_tile, jj), 1);
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<0>();
+    hopper::fence_regs(o);
+    if (lane == 0) hopper::mbar_arrive(&my_empty[sv]);
+  }
+
+  // O = O_0 + O_1: consumer 1's partial sums through its drained ring
+  // ([element][thread], so a warp's stores and loads are conflict-free)
+  float* part = reinterpret_cast<float*>(ring + kRing);
+  if (c == 1) {
+#pragma unroll
+    for (int e = 0; e < D / 2; ++e) part[e * 128 + tid] = o[e];
+  }
+  hopper::bar_sync<1, 128 * kChunkConsumers>();
+  if (c != 0) return;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int t = t_first + row + 8 * r;
+    if (t >= a.t_span) continue;
+    bf16* dst = a.out + (((size_t)b * a.t_span + t) * a.heads + head) * D;
+#pragma unroll
+    for (int jj = 0; jj < D / 8; ++jj) {
+      const int e = 4 * jj + 2 * r;
+      *reinterpret_cast<uint32_t*>(dst + 8 * jj + 2 * t4) =
+          hopper::pack_bf16(o[e] + part[e * 128 + tid],
+                            o[e + 1] + part[(e + 1) * 128 + tid]);
+    }
+  }
+}
+
+// dynamic shared memory of a chunk-route block (its carve-up above; the
+// same as ray_torch/ops/paged_attention.py::_chunk_smem_bytes)
+size_t chunk_smem(int head_dim, int max_pages) {
+  return 1024
+         + (size_t)2 * (kChunkRows
+                        + kChunkConsumers * kChunkStages * kChunkKeys)
+               * head_dim
+         + 4 * 2 * kChunkConsumers * kChunkRows
+         + 8 * (1 + 2 * kChunkConsumers * kChunkStages)
+         + 4 * (size_t)max_pages;
+}
+
+// Tensor map of a [Hkv, P, page, D] bf16 pool: dims {D, page, P, Hkv}, box
+// {W / 2, min(64, page), 1, 1} (one column box of a page's run of keys),
+// the W-byte swizzle. False if the encoding is refused.
+template <int D>
+bool encode_pool(CUtensorMap* map, const void* pool, int kv_heads,
+                 int num_pages, int page_size) {
+  using T = hopper::Tile<D>;
+  hopper::EncodeTiledFn fn = hopper::encode_tiled();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)page_size,
+                              (cuuint64_t)num_pages, (cuuint64_t)kv_heads};
+  const cuuint64_t strides[3] = {2ull * D, 2ull * D * page_size,
+                                 2ull * D * page_size * num_pages};
+  const int box_keys = page_size < kChunkKeys ? page_size : kChunkKeys;
+  const cuuint32_t box[4] = {(cuuint32_t)T::kBoxCols, (cuuint32_t)box_keys,
+                             1u, 1u};
+  const cuuint32_t elem[4] = {1u, 1u, 1u, 1u};
+  const CUtensorMapSwizzle swizzle =
+      T::kRowBytes == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
+      : T::kRowBytes == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
+                           : CU_TENSOR_MAP_SWIZZLE_32B;
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+            const_cast<void*>(pool), dims, strides, box, elem,
+            CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int D>
+cudaError_t launch_chunk(const void* q, const void* k_pages,
+                         const void* v_pages, const ChunkArgs& a, int batch,
+                         int kv_heads, int num_pages, size_t smem,
+                         cudaStream_t stream) {
+  CUtensorMap q_map, k_map, v_map;
+  if (!hopper::encode_bthd<D>(&q_map, q, batch, a.t_span, a.heads,
+                              kChunkRows)
+      || !encode_pool<D>(&k_map, k_pages, kv_heads, num_pages, a.page_size)
+      || !encode_pool<D>(&v_map, v_pages, kv_heads, num_pages, a.page_size))
+    return cudaErrorInvalidValue;
+  auto kernel = paged_chunk_hopper<D>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  const int n_rep = a.heads / kv_heads;
+  const dim3 grid(n_rep * ((a.t_span + kChunkRows - 1) / kChunkRows),
+                  kv_heads, batch);
+  kernel<<<grid, kChunkThreads, smem, stream>>>(q_map, k_map, v_map, a);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // C interface (ctypes). Pointers are device pointers from Tensor.data_ptr();
@@ -749,6 +1136,40 @@ extern "C" int paged_attention_launch(
       q, k_pages, v_pages, pt, bs, lm, out, batch, t_span, heads, kv_heads,
       head_dim, num_pages, page_size, max_pages, rows_per_block, store_scores,
       sm_scale, st);
+}
+
+// The bf16 chunk route (paged_chunk_hopper): the same arguments as the
+// decode route's but for `rows`; the block shape is fixed (kChunk*).
+extern "C" int paged_chunk_launch(
+    const void* q, const void* k_pages, const void* v_pages,
+    const void* page_tables, const void* base, const void* limit, void* out,
+    int batch, int t_span, int heads, int kv_heads, int head_dim,
+    int num_pages, int page_size, int max_pages, float sm_scale,
+    void* stream) {
+  if (batch < 1 || batch > 65535 || t_span < 1 || kv_heads < 1
+      || kv_heads > 65535 || heads % kv_heads != 0 || page_size < 8
+      || page_size % 8 != 0
+      || (kChunkKeys % page_size != 0 && page_size % kChunkKeys != 0)
+      || max_pages < 1 || num_pages < 1)
+    return (int)cudaErrorInvalidValue;
+  const size_t smem = chunk_smem(head_dim, max_pages);
+  if (smem > kSmemLimit) return (int)cudaErrorInvalidValue;
+  const int n_rep = heads / kv_heads;
+  const ChunkArgs a{static_cast<const int*>(page_tables),
+                    static_cast<const int*>(base),
+                    static_cast<const int*>(limit), static_cast<bf16*>(out),
+                    t_span, heads, n_rep, page_size, max_pages, sm_scale};
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (head_dim) {
+    case 64:
+      return (int)launch_chunk<64>(q, k_pages, v_pages, a, batch, kv_heads,
+                                   num_pages, smem, st);
+    case 128:
+      return (int)launch_chunk<128>(q, k_pages, v_pages, a, batch, kv_heads,
+                                    num_pages, smem, st);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }
 
 // The bf16 decode route (paged_decode_hopper): the same arguments but for

@@ -16,9 +16,12 @@ Dispatch is by the tensor's device, never by a fallback: a CPU tensor
 takes :func:`paged_attention_reference`; a CUDA tensor launches a kernel
 (each launch adds one to its kernel's count in ``launches``) or
 raises — on a failed build, a shape the kernel does not take, or a refused
-launch. Two kernels share the semantics (:func:`route` picks one): bf16
-decode and verify launches take ``paged_decode_hopper``, everything else
-(the chunk path, fp32, a span whose scores do not fit) takes
+launch. Three kernels share the semantics (:func:`route` picks one): bf16
+decode and verify launches (at most 16 query rows a slot and kv head) take
+``paged_decode_hopper``; bf16 launches of more rows (the chunked prefill)
+at D 64 or 128 with pages that tile a 64-key tile take
+``paged_chunk_hopper``; everything else (fp32, other head dims and page
+sizes, a decode span whose scores do not fit) takes
 ``paged_attention_kernel``.
 """
 
@@ -33,7 +36,8 @@ from ray_torch.ops import _build
 
 # kernel launches of this process, per kernel (reset by whoever reads
 # them)
-launches = {"paged_decode_hopper": 0, "paged_attention_kernel": 0}
+launches = {"paged_decode_hopper": 0, "paged_chunk_hopper": 0,
+            "paged_attention_kernel": 0}
 
 # launch geometry; csrc/paged_attention.cu holds the same constants
 _KEY_TILE = 64
@@ -47,6 +51,13 @@ _DECODE_STAGES = 4
 _DECODE_WARPS = 8
 _DECODE_MAX_ROWS = 16
 _DECODE_HEAD_DIMS = (64, 128)
+# the bf16 chunk route (paged_chunk_hopper)
+_CHUNK_CONSUMERS = 2
+_CHUNK_THREADS = 128 * (1 + _CHUNK_CONSUMERS)
+_CHUNK_ROWS = 64
+_CHUNK_KEYS = 64
+_CHUNK_STAGES = 4
+_CHUNK_HEAD_DIMS = (64, 128)
 
 
 def _smem_bytes(rows: int, head_dim: int, score_ld: int) -> int:
@@ -96,12 +107,46 @@ def decode_rows(n_rows: int, head_dim: int, page_size: int, max_pages: int,
     return rows
 
 
+def _chunk_smem_bytes(head_dim: int, max_pages: int) -> int:
+    """Dynamic shared memory of one chunk-route block: alignment slack, the
+    unit's bf16 Q tile, each consumer's ring of bf16 K/V tiles, the
+    consumers' partial row max and sum, the rings' barriers and the slot's
+    page-table row (the kernel's carve-up)."""
+    return (1024 + 2 * (_CHUNK_ROWS
+                        + _CHUNK_CONSUMERS * _CHUNK_STAGES * _CHUNK_KEYS)
+            * head_dim + 4 * 2 * _CHUNK_CONSUMERS * _CHUNK_ROWS
+            + 8 * (1 + 2 * _CHUNK_CONSUMERS * _CHUNK_STAGES)
+            + 4 * max_pages)
+
+
+def chunk_plan(n_rows: int, head_dim: int, page_size: int, max_pages: int,
+               dtype: torch.dtype) -> dict | None:
+    """The block of a ``paged_chunk_hopper`` launch — threads, query rows
+    (one rep at 64 consecutive positions, whose key tiles two consumer
+    warpgroups split) and dynamic shared memory — or None when the launch
+    takes another kernel: fp32, at most 16 rows a slot and kv head (the
+    decode route's), a head_dim other than 64 or 128, or a page that is
+    not a multiple of 8 keys dividing the 64-key tile or a multiple of
+    it."""
+    if dtype != torch.bfloat16 or head_dim not in _CHUNK_HEAD_DIMS \
+            or n_rows <= _DECODE_MAX_ROWS or page_size % 8 \
+            or (_CHUNK_KEYS % page_size and page_size % _CHUNK_KEYS):
+        return None
+    smem = _chunk_smem_bytes(head_dim, max_pages)
+    if smem > _SMEM_LIMIT:
+        return None
+    return {"threads": _CHUNK_THREADS, "rows": _CHUNK_ROWS, "smem": smem}
+
+
 def route(n_rows: int, head_dim: int, page_size: int, max_pages: int,
           dtype: torch.dtype) -> str:
-    """The kernel a launch takes (see :func:`decode_rows`)."""
-    if decode_rows(n_rows, head_dim, page_size, max_pages, dtype) is None:
-        return "paged_attention_kernel"
-    return "paged_decode_hopper"
+    """The kernel a launch takes (see :func:`decode_rows` and
+    :func:`chunk_plan`)."""
+    if decode_rows(n_rows, head_dim, page_size, max_pages, dtype) is not None:
+        return "paged_decode_hopper"
+    if chunk_plan(n_rows, head_dim, page_size, max_pages, dtype) is not None:
+        return "paged_chunk_hopper"
+    return "paged_attention_kernel"
 
 
 def check_shapes(head_dim: int, dtype: torch.dtype) -> None:
@@ -168,15 +213,16 @@ def _launch(q, k_pages, v_pages, page_tables, base, limit, sm_scale: float):
         if x.data_ptr() % 16:
             raise ValueError(f"{name} must be 16-byte aligned")
     n_rows = (h // hkv) * t
-    decode = decode_rows(n_rows, d, page_size, max_pages, q.dtype)
+    kernel = route(n_rows, d, page_size, max_pages, q.dtype)
     args = [q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
             page_tables.data_ptr(), base.data_ptr(), limit.data_ptr(),
             out.data_ptr(), b, t, h, hkv, d, num_pages, page_size, max_pages]
-    if decode is not None:
-        kernel = "paged_decode_hopper"
-        args += [decode, float(sm_scale)]
+    if kernel == "paged_decode_hopper":
+        args += [decode_rows(n_rows, d, page_size, max_pages, q.dtype),
+                 float(sm_scale)]
+    elif kernel == "paged_chunk_hopper":
+        args += [float(sm_scale)]
     else:
-        kernel = "paged_attention_kernel"
         rows, store = launch_plan(n_rows, d, max_pages * page_size)
         args += [rows, int(store), float(sm_scale),
                  int(q.dtype == torch.bfloat16)]
@@ -192,9 +238,11 @@ def _launch(q, k_pages, v_pages, page_tables, base, limit, sm_scale: float):
 
 # each kernel's C entry point, and how many int arguments follow the 7
 # pointers and B, T, H, Hkv, D, P, page, max_pages before sm_scale (rows,
-# store; or rows) and after it (is_bf16; or none); the stream comes last
+# store; rows; or none) and after it (is_bf16; or none); the stream comes
+# last
 _ENTRY = {"paged_attention_kernel": ("paged_attention_launch", 2, 1),
-          "paged_decode_hopper": ("paged_decode_launch", 1, 0)}
+          "paged_decode_hopper": ("paged_decode_launch", 1, 0),
+          "paged_chunk_hopper": ("paged_chunk_launch", 0, 0)}
 
 
 def _kernel_fn(kernel: str):

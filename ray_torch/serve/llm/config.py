@@ -1,7 +1,9 @@
 """LLM serving config: the port's own copy of ``ray_tpu/serve/llm/config.py``.
 
 Same field names and defaults, so one dict configures either package, plus
-``device``. Fields of features this slice of the port does not carry yet
+``device``, except ``attention_kernel``: where the reference says
+``"pallas"`` for its kernel, the port says ``"cuda"`` (and raises on
+``"pallas"``). Fields of features this slice of the port does not carry yet
 (KV tier, disaggregation, speculative decoding, tensor parallelism, SLO and
 routing hooks) stay with their defaults; the engine raises if one of them
 is switched on rather than ignoring it.
@@ -47,6 +49,8 @@ class LLMConfig:
     # reads K/V pages straight from the pool through the slot page table;
     # "gather" materializes each slot's full view + dense softmax. "auto"
     # (default) is the kernel on a CUDA device and gather on the CPU.
+    # One dict configures either package except here: where the reference
+    # says "pallas" for its kernel, the port says "cuda" ("pallas" raises).
     attention_kernel: str = "auto"    # "auto" | "gather" | "cuda"
     # not ported yet: must stay 1
     tp_degree: int = 1

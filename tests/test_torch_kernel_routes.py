@@ -5,8 +5,10 @@ kernel planned for it).
 
 - Paged attention: bf16 decode and verify launches (at most 16 query rows
   a slot and kv head, D of 64 or 128, the rows' fp32 scores over the table
-  span in shared memory) take ``paged_decode_hopper``; the chunk path,
-  fp32 and everything else take ``paged_attention_kernel``.
+  span in shared memory) take ``paged_decode_hopper``; bf16 launches of
+  more rows (the chunk path) take ``paged_chunk_hopper`` (its plan is
+  tested in test_torch_chunk_route.py); fp32 and everything else take
+  ``paged_attention_kernel``.
 - Flash attention: bf16 takes the Hopper kernels, dq included; fp32 the
   FMA kernels.
 
@@ -53,8 +55,10 @@ def test_decode_route(n_rows, head_dim, page, max_pages, dtype, want):
     rows = tpaged.decode_rows(n_rows, head_dim, page, max_pages, dtype)
     assert rows == want
     kernel = tpaged.route(n_rows, head_dim, page, max_pages, dtype)
-    assert kernel == ("paged_attention_kernel" if want is None
-                      else "paged_decode_hopper")
+    assert kernel == ("paged_decode_hopper" if want is not None
+                      else "paged_chunk_hopper" if dtype == BF16
+                      and n_rows > 16 and head_dim in (64, 128)
+                      else "paged_attention_kernel")
     if want is not None:
         assert rows >= n_rows and rows in (2, 4, 8, 16)
         assert tpaged._decode_smem_bytes(
