@@ -16,18 +16,36 @@ Phases, each of which raises on failure (nothing is caught and carried on):
    8, 16, 32 and 128, n_rep 1, 2 and 4 and a slot with no live key, two
    runs bit-identical; fp32 and D=256: ``paged_attention_kernel``), then
    timed (CUDA events, and device time by the profiler) beside the bound
-   and the plain version;
-3. greedy identity: ``LLMEngine`` on llama_tiny in fp32 through the kernel
-   and through the gather path must produce identical tokens (the kernel
-   run's launches, all on ``paged_attention_kernel``, are counted);
+   and the plain version: decode B=32, the speculative serving path's
+   verify at W=32, T=spec_draft_len+1, and chunks;
+3. greedy identity: ``LLMEngine`` on llama_tiny in fp32 through the kernel,
+   through the gather path and through the kernel with speculative
+   decoding on must produce identical tokens (the kernel run's launches,
+   all on ``paged_attention_kernel``, are counted; the spec run must run
+   verify rounds);
 4. the serving path at full width: ``LLMServer`` serving llama3_1b (bf16,
    random weights from a seeded generator) at the serve bench's engine
    settings answers completions, some concurrent, through the kernels;
    every launch counter is zeroed just before and read just after: every
    prefill chunk must have run ``paged_chunk_hopper``, the decode steps
-   ``paged_decode_hopper``, and no launch ``paged_attention_kernel``.
-   Then one decode step's logits through the kernel (bf16: the decode
-   route) and through the gather path;
+   ``paged_decode_hopper``, and no launch ``paged_attention_kernel``;
+4b. speculative decoding on that path: ``LLMServer`` with
+   ``spec_decode_enabled`` on, then off, then off again (the control), on
+   phase 4's weights, streams one wave of 8 concurrent greedy completions
+   of 64 tokens (repetitive code and quoted text, one prompt past
+   ``prefill_chunk``); every request must return its 64 tokens, verify
+   rounds must run, and the launch counters (zeroed once each engine has
+   started) must show every verify round and decode step on
+   ``paged_decode_hopper`` (n_layers x (steps - spec_draft_len x verify
+   rounds) launches) and none on ``paged_attention_kernel``; it prints the
+   accept rate, tokens a slot and round, live slots a round, the wave's
+   output tokens/s with spec on and off, and how many requests' bf16
+   tokens are identical. The same wave in fp32 (every launch on
+   ``paged_attention_kernel``) must give identical tokens with spec on and
+   off. Then, from one prefilled pool in bf16 and in
+   fp32, one decode step's logits through the kernel and through the
+   gather path, and one verify step's logits against as many sequential
+   decode steps fed the same tokens;
 5. the three flash-attention kernels against their plain versions on the
    card (bf16 and fp32, causal and not, at the training shapes, a small
    D=64 one and a ragged T=200 with B=2, H=3 at D=128 and D=32; two
@@ -47,7 +65,11 @@ Phases, each of which raises on failure (nothing is caught and carried on):
 8. ``int8_matmul`` (``mlp_impl="int8"``) on the card, forward and
    backward, against the dequantized plain product at the training shape
    and at an 8-row decode shape; the card is asked which row counts
-   ``torch._int_mm`` refuses, and the product must pad exactly those.
+   ``torch._int_mm`` refuses, and the product must pad exactly those;
+9. phase 4b's bf16 wave once more with spec on and off, each under the
+   profiler: device busy share, launches and the decode route's device
+   time (last, so that its large profiles share nothing with the kernel
+   timings).
 
 Prints numbers on earlier lines, then a ``{"kernels": [...]}`` line (each
 row names the CUDA kernel it timed under ``kernel``), then the card's name
@@ -58,6 +80,7 @@ and prints no result.
 
 from __future__ import annotations
 
+import asyncio
 import concurrent.futures
 import dataclasses
 import functools
@@ -202,6 +225,9 @@ def device_ms(fn, reps: int = 10) -> float:
 
 def phase_kernels(card: str):
     from ray_torch.ops import paged_attention as pa
+    from ray_torch.serve.llm import LLMConfig
+
+    verify_t = LLMConfig().spec_draft_len + 1    # a verify round's span
 
     errs = {}                                  # max error, by kernel
 
@@ -269,12 +295,17 @@ def phase_kernels(card: str):
                        limit=at(0, 130, 1001, 2048))
         _, routes["decode B=4 limit 0, mid-page ends", dtype] = held(
             "decode B=4 limit 0, mid-page ends", c)
-        c = paged_case(8, 5, dtype, seed=3)
-        c["limit"] = torch.full_like(c["base"], full)
-        _, routes["verify B=8 T=5", dtype] = held(
-            "verify B=8 T=5", c, lambda c=c: pa.paged_verify_attention(
-                c["q"], c["k"], c["v"], c["pt"], c["base"],
-                sm_scale=c["sm"]))
+        # verify: B=8, and the speculative serving path's W=32 at
+        # T = spec_draft_len + 1
+        for b, seed in ((8, 3), (32, 7)):
+            c = paged_case(b, verify_t, dtype, seed=seed)
+            c["limit"] = torch.full_like(c["base"], full)
+            _, routes[f"verify B={b} T={verify_t}", dtype] = held(
+                f"verify B={b} T={verify_t}", c,
+                lambda c=c: pa.paged_verify_attention(
+                    c["q"], c["k"], c["v"], c["pt"], c["base"],
+                    sm_scale=c["sm"]))
+            cases[("verify", b, dtype)] = c
         c = paged_case(1, 512, dtype, seed=4, base=at(512), limit=at(900))
         got, routes["chunk C=512", dtype] = held(
             "chunk C=512 start=512 len=900", c,
@@ -328,6 +359,7 @@ def phase_kernels(card: str):
 
     timings = []
     for kind, key in (("decode", ("decode", 32, torch.bfloat16)),
+                      ("verify", ("verify", 32, torch.bfloat16)),
                       ("chunk", ("chunk", 512, torch.bfloat16)),
                       ("general", ("chunk", 512, torch.float32))):
         c = cases[key]
@@ -359,7 +391,8 @@ def phase_kernels(card: str):
 
 
 # ---------------------------------------------------------------------------
-# phase 3: greedy identity, kernel vs gather, llama_tiny fp32
+# phase 3: greedy identity, kernel vs gather vs kernel with speculative
+# decoding, llama_tiny fp32
 # ---------------------------------------------------------------------------
 
 def phase_identity():
@@ -371,19 +404,21 @@ def phase_identity():
     params = llama.init_params(mcfg, gen, "cuda")
     shared = "the quick brown fox jumps over the lazy dog"  # 5 full pages
     waves = [[shared + " and keeps running far past the fence",  # > chunk
-              "abc abc abc", "hello"],
+              "abc abc abc abc abc", "abc abc abc", "hello"],
              [shared + " once more"]]                        # prefix hit
     from ray_torch.ops import paged_attention as pa
 
-    outs = {}
-    for kernel in ("cuda", "gather"):
-        if kernel == "cuda":                # count this engine's run only
-            for name in pa.launches:
-                pa.launches[name] = 0
+    outs, launches = {}, {}
+    for run, kernel, spec in (("kernel", "cuda", False),
+                              ("gather", "gather", False),
+                              ("kernel, spec", "cuda", True)):
+        for name in pa.launches:            # count this engine's run only
+            pa.launches[name] = 0
         eng = LLMEngine(LLMConfig(
             model_config=mcfg, device="cuda", attention_kernel=kernel,
             max_batch_size=4, page_size=8, num_pages=64, max_prompt_len=64,
-            max_seq_len=128, prefill_chunk=16, max_tokens=16), params=params)
+            max_seq_len=128, prefill_chunk=16, max_tokens=32,
+            spec_decode_enabled=spec), params=params)
         eng.start()
         try:
             toks = []
@@ -392,24 +427,33 @@ def phase_identity():
                 res = [eng.result(r, timeout=300.0) for r in rids]
                 for r in res:
                     if r["error"] is not None:
-                        raise RuntimeError(f"{kernel} engine: {r['error']}")
+                        raise RuntimeError(f"{run} engine: {r['error']}")
                 toks += [r["tokens"] for r in res]
             stats = eng.engine_stats()
         finally:
             eng.shutdown()
-        if kernel == "cuda":
-            launches = dict(pa.launches)
+        launches[run] = dict(pa.launches)
         assert stats["attention_backend"] == kernel, stats["attention_backend"]
         assert stats["prefix_hits"] >= 1 and stats["attn_chunk_dispatches"] > 0
-        outs[kernel] = toks
-    if outs["cuda"] != outs["gather"]:
-        raise AssertionError(f"greedy tokens differ: kernel {outs['cuda']} "
-                             f"vs gather {outs['gather']}")
-    log(f"  llama_tiny fp32: {len(outs['cuda'])} requests, "
-        f"{sum(map(len, outs['cuda']))} greedy tokens identical "
-        "(kernel vs gather; prefix hit + chunked prefill on the path)")
-    log(f"  kernel launches of the fp32 engine run: "
-        + ", ".join(f"{k} {v}" for k, v in launches.items()))
+        if spec:
+            log(f"  spec run: {stats['spec_rounds']} verify rounds, "
+                f"{stats['spec_accepted_tokens']} of "
+                f"{stats['spec_drafted_tokens']} drafted tokens accepted")
+            if not stats["spec_rounds"] > 0:
+                raise AssertionError("the spec-on engine ran no verify round")
+        outs[run] = toks
+    for run in ("gather", "kernel, spec"):
+        if outs[run] != outs["kernel"]:
+            raise AssertionError(f"greedy tokens differ: kernel "
+                                 f"{outs['kernel']} vs {run} {outs[run]}")
+    log(f"  llama_tiny fp32: {len(outs['kernel'])} requests, "
+        f"{sum(map(len, outs['kernel']))} greedy tokens identical "
+        "(kernel vs gather vs kernel with speculative decoding; prefix hit "
+        "+ chunked prefill on the path)")
+    for run in ("kernel", "kernel, spec"):
+        log(f"  kernel launches of the fp32 engine run ({run}): "
+            + ", ".join(f"{k} {v}" for k, v in launches[run].items()))
+    launches = launches["kernel"]
     if not launches["paged_attention_kernel"] > 0:
         raise AssertionError(f"the fp32 engine run did not launch "
                              f"paged_attention_kernel: {launches}")
@@ -444,18 +488,25 @@ def device_profile(run, top: int = 8):
     return busy_ms, {e.key: e.self_device_time_total / 1e3 for e in kernels}
 
 
+def serve_config(**kw):
+    """The serve bench's llama3-1b engine settings (bench_serve.py)."""
+    from ray_torch.models import llama
+    from ray_torch.serve.llm import LLMConfig
+
+    kw.setdefault("model_config", llama.llama3_1b(max_seq_len=2048))
+    return LLMConfig(
+        model_id="llama3-1b", device="cuda", max_batch_size=32,
+        page_size=128, num_pages=288, max_prompt_len=1024, max_seq_len=2048,
+        decode_block=8, pipeline_depth=3, pressure_decode_block=2, **kw)
+
+
 def phase_serve(card: str):
     from ray_torch.models import llama
     from ray_torch.ops import paged_attention as pa
-    from ray_torch.serve.llm import LLMConfig, LLMServer
+    from ray_torch.serve.llm import LLMServer
 
     max_tokens = 32
-    # the serve bench's llama3-1b engine settings (bench_serve.py)
-    cfg = LLMConfig(
-        model_id="llama3-1b", model_config=llama.llama3_1b(max_seq_len=2048),
-        device="cuda", max_batch_size=32, page_size=128, num_pages=288,
-        max_prompt_len=1024, max_seq_len=2048, decode_block=8,
-        pipeline_depth=3, pressure_decode_block=2, max_tokens=max_tokens)
+    cfg = serve_config(max_tokens=max_tokens)
     word = "the quick brown fox jumps over the lazy dog "
     shared = (word * 12)[:511]              # + BOS = 512 tokens = 4 pages
     wave1 = [f"request {i}: " + word * 3 for i in range(6)]
@@ -560,6 +611,214 @@ def phase_serve(card: str):
     return srv.engine.params, launches
 
 
+# ---------------------------------------------------------------------------
+# phase 4b: speculative decoding on the serving path at full width
+# ---------------------------------------------------------------------------
+
+def spec_wave() -> list[str]:
+    """8 prompts whose text repeats (code, quoted verse), one of them past
+    ``prefill_chunk`` (512 tokens) so it chunk-prefills."""
+    code = "def add(a, b):\n    return a + b\n\n"
+    loop = "for i in range(10):\n    total += values[i] * weights[i]\n"
+    quote = '"to be, or not to be, that is the question" she said; '
+    wave = [f"# module {i}\n" + code * 4 for i in range(3)]
+    wave += [f"reply {i}: " + quote * 3 for i in range(3)]
+    wave += ["total = 0\n" + loop * 4]
+    wave += [(code + loop) * 10]             # 891 tokens: chunked prefill
+    return wave
+
+
+def stream_wave(srv, prompts, max_tokens):
+    """Stream greedy completions of all ``prompts`` concurrently through
+    the server's OpenAI-shaped endpoint: per request, its token ids and
+    its final chunk."""
+    async def one(prompt):
+        toks, final = [], None
+        async for chunk in srv.completions(
+                {"prompt": prompt, "max_tokens": max_tokens,
+                 "temperature": 0.0, "stream": True}):
+            toks += chunk.get("token_ids", [])
+            final = chunk
+        return toks, final
+
+    async def wave():
+        return await asyncio.gather(*(one(p) for p in prompts))
+
+    return asyncio.run(wave())
+
+
+def planned_launches(cfg, stats) -> dict:
+    """Launches per kernel that an engine run's stats imply: n_layers for
+    each decode step, each verify round (one launch at [W, k + 1]) and each
+    prefill chunk, each on the kernel ``paged_attention.route`` plans for
+    its rows (in bf16: n_layers x (steps - k x verify rounds) on
+    ``paged_decode_hopper``)."""
+    from ray_torch.ops import paged_attention as pa
+
+    mc, k = cfg.model_config, cfg.spec_draft_len
+    n_rep, layers = mc.n_heads // mc.n_kv_heads, mc.n_layers
+    verify = stats["attn_verify_dispatches"]
+
+    def route(rows):
+        return pa.route(n_rep * rows, mc.head_dim, cfg.page_size,
+                        -(-cfg.max_seq_len // cfg.page_size), mc.dtype)
+
+    want = dict.fromkeys(pa.launches, 0)
+    for rows, count in ((1, stats["steps"] - (k + 1) * verify),
+                        (k + 1, verify),
+                        (cfg.prefill_chunk, stats["attn_chunk_dispatches"])):
+        want[route(rows)] += layers * count
+    return want
+
+
+def serve_wave(cfg, params, wave, max_tokens):
+    """One ``LLMServer`` over ``params`` streams ``wave``; the launch
+    counters are zeroed once the engine has started and read after the
+    wave. Returns the streams, the wave's wall time, the engine's stats,
+    the launches and the live slots of each verify round."""
+    from ray_torch.ops import paged_attention as pa
+    from ray_torch.serve.llm import LLMServer
+
+    srv = LLMServer(cfg, params=params, rng_seed=0)
+    rows = []
+
+    def counted(r, dispatch=srv.engine._dispatch_verify):
+        rows.append(len(r))
+        dispatch(r)
+
+    srv.engine._dispatch_verify = counted
+    try:
+        for name in pa.launches:
+            pa.launches[name] = 0
+        t0 = time.perf_counter()
+        outs = stream_wave(srv, wave, max_tokens)
+        wall = time.perf_counter() - t0
+        stats = srv.engine_stats()
+        launches = dict(pa.launches)
+    finally:
+        srv.shutdown()
+        # the wrapper refers to the engine: drop it, so the engine (its
+        # pool, and in fp32 its weights) is freed with the server
+        del srv.engine._dispatch_verify
+    for toks, final in outs:
+        if final.get("error") or len(toks) != max_tokens \
+                or final["usage"]["completion_tokens"] != max_tokens:
+            raise AssertionError(f"a request returned {len(toks)} tokens, "
+                                 f"{final}")
+    want = planned_launches(cfg, stats)
+    log(f"  kernel launches {launches} (planned {want}); engine steps "
+        f"{stats['steps']}, decode blocks {stats['attn_decode_dispatches']}"
+        f", verify rounds {stats['attn_verify_dispatches']}, chunks "
+        f"{stats['attn_chunk_dispatches']}")
+    if launches != want or not stats["attn_chunk_dispatches"] > 0:
+        raise AssertionError(f"launches {launches} are not the planned "
+                             f"{want}")
+    return [toks for toks, _ in outs], wall, stats, launches, rows
+
+
+def compare_streams(name, a, b, card):
+    """How many requests' tokens are identical, and where the others
+    first differ."""
+    firsts = [next(i for i, (p, q) in enumerate(zip(x, y)) if p != q)
+              for x, y in zip(a, b) if x != y]
+    log(f"  greedy tokens {name}: {len(a) - len(firsts)}/{len(a)} requests "
+        f"identical; first differing position of the others: "
+        f"{firsts or 'none'} [{card}]")
+    return not firsts
+
+
+def phase_spec_serve(card: str, params):
+    """``LLMServer`` serving llama3_1b with speculative decoding on and off,
+    one wave of 8 concurrent greedy streams of 64 tokens each, on phase 4's
+    weights. In bf16: spec on, off, and off again on a fresh engine (the
+    control); every verify round (16 layers, one launch a layer at
+    [W, spec_draft_len + 1]) and every decode step must run
+    ``paged_decode_hopper`` and nothing ``paged_attention_kernel``, and
+    bf16 token differences are reported. In fp32 (every launch on
+    ``paged_attention_kernel``): spec on and off must give identical
+    tokens."""
+    from ray_torch.models import llama
+    from ray_torch.ops import paged_attention as pa
+
+    max_tokens = 64
+    wave = spec_wave()
+    runs = {}
+    for run, spec in (("on", True), ("off", False), ("off again", False)):
+        log(f"  bf16, spec {run}:")
+        cfg = serve_config(max_tokens=max_tokens, spec_decode_enabled=spec)
+        runs[run] = serve_wave(cfg, params, wave, max_tokens)
+    mc, k = cfg.model_config, cfg.spec_draft_len
+    on, off, again = runs["on"], runs["off"], runs["off again"]
+    stats, rows = on[2], on[4]
+    route = pa.route(mc.n_heads // mc.n_kv_heads * (k + 1), mc.head_dim,
+                     cfg.page_size, -(-cfg.max_seq_len // cfg.page_size),
+                     mc.dtype)
+    if route != "paged_decode_hopper" or not stats["spec_rounds"] > 0:
+        raise AssertionError(f"verify route {route}, spec_rounds "
+                             f"{stats['spec_rounds']}")
+    verify_launches = mc.n_layers * stats["attn_verify_dispatches"]
+    log(f"  verify launches at [W, {k + 1}]: route {route}, "
+        f"{verify_launches} of the {on[3]['paged_decode_hopper']} "
+        f"paged_decode_hopper launches")
+    log(f"  llama3_1b bf16, {len(wave)} concurrent greedy streams x "
+        f"{max_tokens} tokens: spec_accept_rate {stats['spec_accept_rate']}"
+        f" ({stats['spec_accepted_tokens']} of "
+        f"{stats['spec_drafted_tokens']} drafted), "
+        f"{stats['spec_rounds']} verify rounds, "
+        f"{stats['spec_accepted_tokens'] / sum(rows) + 1:.3f} tokens a slot "
+        f"and round; live slots a round: mean {sum(rows) / len(rows):.2f}, "
+        f"max {max(rows)} ({sum(rows)} slot-rounds) [{card}]")
+    log(f"  engine phases p50, spec on: verify_dispatch "
+        f"{stats['phase_verify_dispatch_p50_ms']} ms, decode_dispatch "
+        f"{stats['phase_decode_dispatch_p50_ms']} ms, harvest "
+        f"{stats['phase_harvest_p50_ms']} ms; spec off: decode_dispatch "
+        f"{off[2]['phase_decode_dispatch_p50_ms']} ms")
+    n_out = len(wave) * max_tokens
+    log("  wave wall: " + "; ".join(
+        f"spec {run} {r[1]:.3f} s = {n_out / r[1]:.1f} output tokens/s"
+        for run, r in runs.items()) + f" [{card}]")
+    compare_streams("bf16, spec on vs off", on[0], off[0], card)
+    compare_streams("bf16, spec off vs off again", off[0], again[0], card)
+
+    fp32 = _cast(params, torch.float32)
+    mc32 = llama.llama3_1b(max_seq_len=2048, dtype=torch.float32)
+    streams = {}
+    for spec in (True, False):
+        log(f"  fp32, spec {'on' if spec else 'off'}:")
+        streams[spec] = serve_wave(serve_config(
+            model_config=mc32, max_tokens=max_tokens,
+            spec_decode_enabled=spec), fp32, wave, max_tokens)[0]
+    if not compare_streams("fp32, spec on vs off", streams[True],
+                           streams[False], card):
+        raise AssertionError("fp32 greedy tokens differ with spec on")
+    del fp32
+    return on[3], verify_launches, k
+
+
+def phase_spec_profile(card: str, max_tokens: int = 64):
+    """Where phase 4b's bf16 wave spends its time, spec on and off: one
+    profiled wave each on a fresh server (device busy share, launches, the
+    decode route's device time), over phase 4's weights (the same seed).
+    Run last: a profile of ~160,000 launches must not share a process's
+    profiler with the kernel timings."""
+    from ray_torch.serve.llm import LLMServer
+
+    for spec in (True, False):
+        log(f"  bf16, spec {'on' if spec else 'off'}, profiled wave:")
+        srv = LLMServer(serve_config(max_tokens=max_tokens,
+                                     spec_decode_enabled=spec),
+                        rng_seed=0)
+        try:
+            busy_ms, by_kernel = device_profile(
+                lambda: stream_wave(srv, spec_wave(), max_tokens), top=4)
+        finally:
+            srv.shutdown()
+        paged = sum(ms for key, ms in by_kernel.items()
+                    if "paged_decode_hopper" in key)
+        log(f"  paged_decode_hopper {paged:.2f} ms = "
+            f"{100 * paged / busy_ms:.1f}% of the device time [{card}]")
+
+
 def _cast(tree, dtype):
     """Weights in ``dtype``; the fp32 norms stay fp32."""
     if isinstance(tree, dict):
@@ -567,12 +826,17 @@ def _cast(tree, dtype):
     return tree if tree.dtype == torch.float32 else tree.to(dtype)
 
 
-def phase_logits(params):
+def phase_logits(params, draft_len: int):
     """One decode step over 4 slots through the kernel and through the
-    gather path, from the same prefilled pool, in bf16 and in fp32.
+    gather path, from the same prefilled pool, in bf16 and in fp32; then,
+    through the kernel, one verify step over ``draft_len + 1`` tokens
+    against that many sequential decode steps fed the same tokens.
 
-    The two paths differ only in the order attention's fp32 partial sums
-    are taken. Tolerance |kernel - gather| <= tol * (1 + |gather|):
+    Kernel and gather differ only in the order attention's fp32 partial
+    sums are taken; verify and sequential decode in that order and in the
+    shapes of their products ([4 * (draft_len + 1), D] against [4, D], for
+    which cuBLAS may pick other kernels). Tolerance
+    |got - want| <= tol * (1 + |want|):
     - bf16, tol 6.25e-2: an attention output can then differ by one bf16
       rounding (2^-8 relative) per layer; 16 layers give 16 * 2^-8;
     - fp32, tol 1e-3: attention outputs agree to ~1e-6 (phase 2), and 16
@@ -626,7 +890,63 @@ def phase_logits(params):
         if not ok:
             raise AssertionError(f"kernel and gather decode logits disagree "
                                  f"in {dtype}")
+        verify_vs_decode(weights, pool, tables, seq, tokens, mcfg, page,
+                         draft_len, tol, g)
         del weights, pool, kv, out
+
+
+def verify_vs_decode(weights, pool, tables, seq, first, mcfg, page,
+                     draft_len, tol, g):
+    """One ``paged_verify_step`` over [first, draft_len random tokens]
+    against ``draft_len + 1`` sequential ``paged_decode_step``s fed the same
+    tokens, each on its own copy of the prefilled pool, through the kernel:
+    logits[:, t] of the verify step are what decode computes after
+    consuming tokens[:, :t + 1]."""
+    from ray_torch.ops import paged_attention as pa
+    from ray_torch.serve.llm import kv_cache as kvc
+
+    b, t = first.shape[0], draft_len + 1
+    drafts = torch.randint(0, 32000, (b, draft_len), generator=g,
+                           device=first.device)
+    tokens = torch.cat([first[:, None], drafts], dim=1)
+    before = dict(pa.launches)
+    kv = {k: v.clone() for k, v in pool.items()}
+    got, lens = kvc.paged_verify_step(weights, kv, tables, seq, tokens, mcfg,
+                                      page, "cuda")
+    kv = {k: v.clone() for k, v in pool.items()}
+    steps, pos = [], seq
+    for i in range(t):
+        logits, pos = kvc.paged_decode_step(weights, kv, tables, pos,
+                                            tokens[:, i], mcfg, page, "cuda")
+        steps.append(logits)
+    want = torch.stack(steps, dim=1)
+    torch.cuda.synchronize()
+    took = {k: v - before[k] for k, v in pa.launches.items()
+            if v != before[k]}
+    hkv = mcfg.n_kv_heads
+    routes = {pa.route(mcfg.n_heads // hkv * n, mcfg.head_dim, page,
+                       tables.shape[1], mcfg.dtype) for n in (t, 1)}
+    if len(routes) != 1 or took != {routes.pop(): (t + 1) * mcfg.n_layers}:
+        raise AssertionError(f"verify + {t} decode steps launched {took}")
+    if not torch.equal(lens, pos):
+        raise AssertionError(f"verify lens {lens} vs decode {pos}")
+    diff = (got - want).abs()
+    ok = bool((diff <= tol * (1 + want.abs())).all())
+    same = int((got.argmax(-1) == want.argmax(-1)).sum())
+    # how close greedy decoding sits to a tie: the gap between each row's
+    # two largest logits, against the largest difference seen
+    top2 = want.topk(2, dim=-1).values
+    gaps = (top2[..., 0] - top2[..., 1]).flatten()
+    log(f"  verify-step logits {str(mcfg.dtype):<14} {b} slots x T={t} vs "
+        f"{t} sequential decode steps: max |verify - decode| "
+        f"{float(diff.max()):.4e} (max |logit| {float(want.abs().max()):.3f}"
+        f", tol {tol} * (1 + |ref|)); argmax equal in {same}/{b * t}; "
+        f"top-2 logit gap median {float(gaps.median()):.4e}, below the max "
+        f"difference in {int((gaps < diff.max()).sum())}/{b * t} rows; "
+        f"{took}")
+    if not ok:
+        raise AssertionError(f"verify and sequential decode logits disagree "
+                             f"in {mcfg.dtype}")
 
 
 # ---------------------------------------------------------------------------
@@ -1129,7 +1449,8 @@ def main() -> int:
     kernels = phase_kernels(card)
     log(f"  phase 2: {time.perf_counter() - t0:.1f} s")
 
-    log("[3] greedy identity, kernel vs gather")
+    log("[3] greedy identity: kernel, gather, kernel with speculative "
+        "decoding")
     t0 = time.perf_counter()
     identity_launches = phase_identity()
     log(f"  phase 3: {time.perf_counter() - t0:.1f} s")
@@ -1137,9 +1458,20 @@ def main() -> int:
     log("[4] main path: LLMServer, llama3_1b at full width")
     t0 = time.perf_counter()
     params, launches = phase_serve(card)
-    phase_logits(params)
     log(f"  phase 4: {time.perf_counter() - t0:.1f} s")
+
+    log("[4b] main path with speculative decoding: LLMServer, llama3_1b at "
+        "full width")
+    t0 = time.perf_counter()
+    spec_launches, verify_launches, draft_len = phase_spec_serve(card, params)
+    phase_logits(params, draft_len)
+    log(f"  phase 4b: {time.perf_counter() - t0:.1f} s")
     for k in kernels:         # each kernel's count on the path it serves
+        if k["name"] == "paged_attention/verify":
+            k["launches"] = spec_launches[k["kernel"]]
+            k["verify_launches"] = verify_launches
+            k["launches_on"] = "phase 4b: llama3_1b bf16 speculative serving"
+            continue
         general = k["kernel"] == "paged_attention_kernel"
         k["launches"] = (identity_launches if general else
                          launches)[k["kernel"]]
@@ -1171,7 +1503,12 @@ def main() -> int:
     log("[8] int8_matmul on the card")
     t0 = time.perf_counter()
     phase_int8(card)
-    log(f"  phase 8: {time.perf_counter() - t0:.1f} s; total "
+    log(f"  phase 8: {time.perf_counter() - t0:.1f} s")
+
+    log("[9] where a speculative serving wave's time goes")
+    t0 = time.perf_counter()
+    phase_spec_profile(card)
+    log(f"  phase 9: {time.perf_counter() - t0:.1f} s; total "
         f"{time.perf_counter() - t_all:.1f} s")
 
     print(json.dumps({"kernels": kernels + flash}))

@@ -4,9 +4,9 @@ Same field names and defaults, so one dict configures either package, plus
 ``device``, except ``attention_kernel``: where the reference says
 ``"pallas"`` for its kernel, the port says ``"cuda"`` (and raises on
 ``"pallas"``). Fields of features this slice of the port does not carry yet
-(KV tier, disaggregation, speculative decoding, tensor parallelism, SLO and
-routing hooks) stay with their defaults; the engine raises if one of them
-is switched on rather than ignoring it.
+(KV tier, disaggregation, tensor parallelism, SLO and routing hooks) stay
+with their defaults; the engine raises if one of them is switched on rather
+than ignoring it.
 """
 
 from __future__ import annotations
@@ -81,7 +81,9 @@ class LLMConfig:
     # 0 = bounded only by the pool
     prefix_cache_max_pages: int = 0
 
-    # Speculative decoding — not ported yet: must stay False
+    # Speculative decoding (spec_decode.py): greedy slots draft up to
+    # spec_draft_len tokens by n-gram lookup over their own context (n up
+    # to spec_ngram_max), verified in one multi-position pass per round
     spec_decode_enabled: bool = False
     spec_draft_len: int = 4
     spec_ngram_max: int = 3

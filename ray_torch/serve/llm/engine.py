@@ -23,12 +23,17 @@ How the reference's JAX machinery maps onto PyTorch:
 - the slot state keeps a PERMANENT TRASH ROW (row ``max_batch_size``):
   packed decode widths pad their index vector with it, so padding lanes
   write only into the trash page; slot patches are applied at one fixed
-  shape (B+1 rows, trash-row padded).
+  shape (B+1 rows, trash-row padded);
+- speculative decoding (``spec_decode_enabled``) verifies a greedy slot's
+  n-gram draft in one verify round (``_verify_round``: k+1 positions per
+  slot through ``kv_cache.paged_verify_step``) in place of the reference's
+  jitted verify-k program; the host bookkeeping around it is the
+  reference's.
 
 This slice leaves out, for later slices: the KV tier (spill, restore, warm
-start), disaggregation, failover continuations, speculative decoding,
-tensor parallelism, the flight-recorder / tracing / attribution / deadline
-hooks, and CUDA graphs. A config that switches one of them on raises.
+start), disaggregation, failover continuations, tensor parallelism, the
+flight-recorder / tracing / attribution / deadline hooks, and CUDA graphs.
+A config that switches one of them on raises.
 
 Threading model: one loop thread drives the device. ``submit()`` /
 ``drain()`` / ``result()`` / ``cancel()`` are thread-safe.
@@ -41,7 +46,7 @@ import threading
 import time
 import uuid
 from dataclasses import dataclass, field
-from typing import Optional
+from typing import Any, Optional
 
 import numpy as np
 import torch
@@ -51,6 +56,7 @@ from ray_torch.models import llama
 from ray_torch.observability import profiling as profiling_mod
 from ray_torch.ops import _build
 from ray_torch.serve.llm import kv_cache as kvc
+from ray_torch.serve.llm import spec_decode
 from ray_torch.serve.llm.config import LLMConfig
 from ray_torch.serve.llm.tokenizer import get_tokenizer
 
@@ -58,8 +64,8 @@ logger = logging.getLogger(__name__)
 
 # LLMConfig switches of features this slice does not carry: (field, the
 # only accepted value)
-_NOT_PORTED = (("spec_decode_enabled", False), ("kv_tier_enabled", False),
-               ("tp_degree", 1), ("disagg_prompt_threshold", 0),
+_NOT_PORTED = (("kv_tier_enabled", False), ("tp_degree", 1),
+               ("disagg_prompt_threshold", 0),
                ("disagg_prefill_deployment", None))
 
 
@@ -83,6 +89,12 @@ class _Request:
     # cancelled while mid chunked prefill: the loop frees slot+pages
     # promptly via _abort_prefilling instead of finishing the prompt pass
     prefill_cancelled: bool = False
+    # speculative decoding: per-request n-gram proposer (spec_decode.py),
+    # created lazily on the first draft attempt; spec_inflight marks a slot
+    # with an unharvested verify round so the decode path never dispatches
+    # it concurrently (its device seq_len is k+1 ahead until rollback)
+    spec: Any = None
+    spec_inflight: bool = False
     # cancelled by the client: completion also reaps the tracking entry
     abandoned: bool = False
     drained_upto: int = 0
@@ -191,10 +203,19 @@ class LLMEngine:
                       "requests": 0, "compile_s": 0.0,
                       "prefix_hits": 0, "prefix_misses": 0,
                       "prefix_hit_tokens": 0,
-                      # decode blocks / prefill chunks dispatched, each
-                      # running the resolved attention backend per layer
+                      "spec_rounds": 0, "spec_drafted_tokens": 0,
+                      "spec_accepted_tokens": 0,
+                      # decode blocks / verify rounds / prefill chunks
+                      # dispatched, each running the resolved attention
+                      # backend per layer
                       "attn_decode_dispatches": 0,
+                      "attn_verify_dispatches": 0,
                       "attn_chunk_dispatches": 0}
+        # Speculative decoding (spec_decode.py + _verify_round): host-side
+        # n-gram drafts verified k at a time in one dispatch. Greedy-only
+        # guarantee: non-greedy slots are never drafted and ride the normal
+        # decode path.
+        self._spec_on = bool(cfg.spec_decode_enabled)
         self._last_block = 0
         # Pipelined decode: the host harvests sampled tokens PIPELINE_DEPTH
         # blocks behind the device
@@ -213,7 +234,6 @@ class LLMEngine:
                                       device=dev)
         self._dev_tokens = torch.zeros((b + 1,), dtype=torch.long,
                                        device=dev)
-        self._zero_tok = torch.zeros((), dtype=torch.long, device=dev)
         self._dirty_slots: dict[int, tuple] = {}  # slot -> (seq_len, temp)
 
     # ---- device programs -------------------------------------------------
@@ -242,6 +262,43 @@ class LLMEngine:
         self._sl_dev[idx] = torch.where(idx == trash, 0, lens)
         self._dev_tokens[idx] = toks
         return torch.stack(outs)
+
+    def _verify_round(self, idx: torch.Tensor, drafts: torch.Tensor):
+        """Verify round (speculative decoding) at the PACKED width
+        ``len(idx)``: k+1 token positions per slot, the current token
+        followed by its k drafted tokens, scored in ONE multi-position pass
+        (``paged_verify_step``). logits[t] match what sequential decode
+        computes after consuming the first t draft tokens, so with greedy
+        sampling output s[t] equals baseline decode's: the host accepts the
+        longest prefix with drafts[t] == s[t] and emits s[:a+1].
+
+        Rejected tail positions write junk KV past the accepted length, in
+        the slot's own suffix pages (decode positions are never below the
+        prompt length, so never in shared prefix pages); the harvest rolls
+        the slot's seq_len back and later steps overwrite the junk before
+        attending to it. drafts: [W, k] longs, -1 for padding lanes and
+        short drafts (-1 never equals a sampled token). Updates the KV pool
+        and slot state in place and returns all samples [k+1, W]."""
+        pt = self._pt_dev[idx]
+        lens = self._sl_dev[idx]
+        temps = self._temps_dev[idx]
+        tokens = torch.cat([self._dev_tokens[idx][:, None], drafts], dim=1)
+        logits, new_lens = kvc.paged_verify_step(
+            self.params, self.kv, pt, lens, tokens, self.model_cfg,
+            self.cfg.page_size, self._attn_backend)
+        t = tokens.shape[1]
+        out = kvc.sample_tokens(
+            logits.reshape(-1, logits.shape[-1]), self._gen,
+            temps.repeat_interleave(t), self.cfg.top_k).reshape(-1, t)
+        all_toks = out.T.contiguous()                               # [k+1, W]
+        # the scattered lens are k+1 past the truth for every rejected
+        # draft; the harvest patches every participating slot with its
+        # rolled-back length before a later dispatch reads it. Trash row
+        # pinned to zero as in _decode_block.
+        trash = self.cfg.max_batch_size
+        self._sl_dev[idx] = torch.where(idx == trash, 0, new_lens)
+        self._dev_tokens[idx] = all_toks[-1]
+        return all_toks
 
     def _first_token(self, logits, temperature: float):
         """Sample a prompt pass's first token on the device (no host
@@ -275,12 +332,23 @@ class LLMEngine:
         tiers = {1, max(1, min(self.cfg.pressure_decode_block,
                                self.cfg.decode_block)),
                  self.cfg.decode_block}
+        if self._spec_on:
+            # the spec-capped idle tier (_select_block) dispatches too
+            tiers.add(min(self.cfg.decode_block,
+                          max(1, self.cfg.spec_draft_len)))
         for w in widths:
             idx = torch.full((w,), trash, dtype=torch.long,
                              device=self.device)
             for k in sorted(tiers):
                 with self._prof.compile_scope("decode", ("decode", w, k)):
                     self._decode_block(idx, k)
+            if self._spec_on:
+                # the verify round per width too, on -1 drafts
+                k = self.cfg.spec_draft_len
+                drafts = torch.full((w, k), -1, dtype=torch.long,
+                                    device=self.device)
+                with self._prof.compile_scope("verify", ("verify", w, k)):
+                    self._verify_round(idx, drafts)
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
@@ -450,11 +518,16 @@ class LLMEngine:
         out["attention_backend"] = self._attn_backend
         out["attn_backend_cuda"] = int(self._attn_backend == "cuda")
         out["attn_kernel_compiles"] = self._prof.compile_count(
-            ("decode", "chunk"))
+            ("decode", "verify", "chunk"))
         out["tp_degree"] = 1
         out.update(self._prof.memory_stats(
             self.device, used_pages=self.cfg.num_pages - free,
             total_pages=self.cfg.num_pages))
+        if self._spec_on:
+            d = self.stats["spec_drafted_tokens"]
+            out["spec_accept_rate"] = (
+                round(self.stats["spec_accepted_tokens"] / d, 4) if d
+                else 0.0)
         if self._prefix_cache_on:
             cs = self.allocator.cache_stats()
             out.update({"prefix_cached_pages": cs["cached_pages"],
@@ -492,8 +565,8 @@ class LLMEngine:
             chunks = self._prefill_chunks()
             # chunk dispatches count as progress: an otherwise-idle engine
             # mid-chunked-prefill must not sleep between chunks
-            dispatched = self._decode_step() or chunks > 0
-            # Eager harvest: pop every block whose tokens already landed
+            dispatched = self._step() or chunks > 0
+            # Eager harvest: pop every entry whose tokens already landed
             # in host memory; the blocking PIPELINE_DEPTH trim in
             # _decode_step still bounds the queue when results are slow
             while self._pending and self._pending[0][0].ready():
@@ -723,19 +796,28 @@ class LLMEngine:
     def _select_block(self) -> int:
         """Decode-block tier for the next dispatch (lock held): 1 while
         admissions wait, pressure_decode_block while requests queue for
-        slots, decode_block otherwise."""
+        slots, decode_block otherwise.
+
+        With speculative decoding on, the idle tier is capped at
+        spec_draft_len: a draft can only continue the CURRENT head token,
+        and the engine probes for drafts once per loop iteration, so long
+        decode blocks would skip most draft opportunities (the head lands
+        mid-block)."""
         if self._admissions_blocked():
             return 1
         if self._waiting:
             return max(1, min(self.cfg.pressure_decode_block,
                               self.cfg.decode_block))
-        return self.cfg.decode_block
+        k = self.cfg.decode_block
+        if self._spec_on:
+            k = min(k, max(1, self.cfg.spec_draft_len))
+        return k
 
     def _flush_slot_patches(self, dirty: dict, overrides: dict) -> None:
         """Apply queued slot-state patches at the fixed B+1 shape (padded
         onto the trash row, whose state is all zeros by invariant) and
-        write first-token overrides into the device token vector. Loop
-        thread only."""
+        write token overrides into the device token vector. Shared by the
+        decode and verify dispatch paths; loop thread only."""
         trash_row = self.cfg.max_batch_size
         dev = self.device
         if dirty:
@@ -753,15 +835,30 @@ class LLMEngine:
             self._sl_dev[didx] = self._to_device(slv)
             self._temps_dev[didx] = self._to_device(tv)
         if overrides:
-            # values are on-device tokens from prefills: stacking and
-            # scattering stays on the device — no host sync
+            # values are on-device tokens from prefills (stacked on the
+            # device, no host sync) or host ints from verify-round
+            # acceptance (one host-to-device copy for all of them, padded
+            # with the trash row's zeros)
+            on_dev = [s for s, v in overrides.items()
+                      if isinstance(v, torch.Tensor)]
+            on_host = [s for s, v in overrides.items()
+                       if not isinstance(v, torch.Tensor)]
             pad = (trash_row + 1) - len(overrides)
-            oidx = torch.tensor(list(overrides) + [trash_row] * pad,
+            oidx = torch.tensor(on_dev + on_host + [trash_row] * pad,
                                 dtype=torch.long, device=dev)
-            ovals = torch.stack(
-                [torch.as_tensor(v, device=dev).long().reshape(())
-                 for v in overrides.values()] + [self._zero_tok] * pad)
-            self._dev_tokens[oidx] = ovals
+            host_vals = torch.tensor(
+                [overrides[s] for s in on_host] + [0] * pad,
+                dtype=torch.long, device=dev)
+            self._dev_tokens[oidx] = torch.cat(
+                [overrides[s].reshape(1).long() for s in on_dev]
+                + [host_vals])
+
+    def _step(self) -> bool:
+        """Dispatch the iteration's device work: a verify round for slots
+        with drafts (spec_decode_enabled), then one decode block for the
+        rest."""
+        did_spec = self._spec_on and self._spec_step()
+        return self._decode_step() or did_spec
 
     def _decode_step(self) -> bool:
         """Dispatch one decode block (1..decode_block steps) without waiting
@@ -769,9 +866,15 @@ class LLMEngine:
         is ordered, so an in-flight block that still references a freed
         slot's pages runs BEFORE any later prefill that reuses them."""
         with self._lock:
+            # a slot joins while it has tokens left to dispatch, or while
+            # nothing of it is in flight (dispatched == len(generated)): a
+            # cancel that lands between a verify harvest and the next
+            # dispatch caps max_tokens at len(generated), and only one more
+            # token, as a decode-mode cancel records, finishes the request
             snapshot = [(i, i, req) for i, req in enumerate(self.slot_req)
-                        if req is not None
-                        and req.dispatched < req.max_tokens]
+                        if req is not None and not req.spec_inflight
+                        and (req.dispatched < req.max_tokens
+                             or req.dispatched == len(req.generated))]
             if not snapshot:
                 return False
             # Overshoot past a request's max_tokens is by-design safe:
@@ -808,23 +911,181 @@ class LLMEngine:
             self._harvest_one()
         return True
 
+    # ---- speculative decoding --------------------------------------------
+    def _propose_locked(self, req: _Request) -> list[int]:
+        """Draft tokens for one slot (lock held). Greedy slots only — the
+        identity guarantee is a greedy property; non-greedy slots ride the
+        normal decode path untouched. The draft is capped so a fully
+        accepted round cannot emit past max_tokens."""
+        if req.temperature != 0.0:
+            return []
+        remaining = req.max_tokens - len(req.generated)
+        if remaining <= 1:
+            return []
+        if req.spec is None:
+            req.spec = spec_decode.NGramProposer(
+                self.cfg.spec_ngram_max, self.cfg.spec_draft_len)
+        draft = req.spec.propose(req.prompt_tokens + req.generated)
+        return draft[: remaining - 1]
+
+    def _dispatch_verify(self, rows) -> None:
+        """Dispatch ONE verify round for ``rows`` of (slot, req, draft,
+        base_len) whose host state is exact (just drained or just
+        harvested). Loop thread only; lock NOT held."""
+        k = self.cfg.spec_draft_len
+        with self._lock:
+            for _slot, req, _draft, _base in rows:
+                req.spec_inflight = True
+                req.dispatched += k + 1
+            dirty, self._dirty_slots = self._dirty_slots, {}
+            overrides, self._overrides = self._overrides, {}
+        t0 = time.perf_counter() if self._prof.enabled else 0.0
+        self._flush_slot_patches(dirty, overrides)
+        spec_slots = [slot for slot, _r, _d, _b in rows]
+        w = self._bucket_width(len(spec_slots))
+        trash = self.cfg.max_batch_size
+        idx = torch.tensor(spec_slots + [trash] * (w - len(spec_slots)),
+                           dtype=torch.long, device=self.device)
+        draft_mat = np.full((w, k), -1, np.int64)
+        entry = []  # (col, slot, req, draft, base_len)
+        for col, (slot, req, draft, base_len) in enumerate(rows):
+            draft_mat[col, : len(draft)] = draft
+            entry.append((col, slot, req, draft, base_len))
+        with self._prof.compile_scope(
+                "verify", ("verify", w, k),
+                mid_traffic=self.stats["requests"] > 0):
+            all_toks = self._verify_round(idx, self._to_device(draft_mat))
+        self._pending.append((_Fetch(all_toks), entry, ("spec", k)))
+        self.stats["steps"] += k + 1
+        self.stats["attn_verify_dispatches"] += 1
+        if self._prof.enabled:
+            self._prof.record("verify_dispatch", time.perf_counter() - t0)
+
+    def _spec_step(self) -> bool:
+        """TRANSITION decode-mode slots with drafts into verify rounds.
+
+        Speculation needs the host's view of a slot to be authoritative
+        (drafts continue the slot's true token sequence, and rollback needs
+        its true cache length), so entering spec mode drains the entries
+        in flight once. After that the slot CHAINS drain-free: each verify
+        harvest leaves its host state exact, so _apply_verify re-proposes
+        and dispatches the next round directly, and the slot falls back
+        into decode blocks only when no draft comes. A cheap pre-check on
+        the (possibly pipeline-stale) host context avoids paying the drain
+        when nothing would draft."""
+        with self._lock:
+            # gate on generated (host truth lower bound), NOT dispatched:
+            # pipelined decode runs dispatched ahead to max_tokens within a
+            # few blocks, which would silence speculation for the rest of
+            # the generation. A stale-context false positive just costs the
+            # drain (the post-drain re-propose is authoritative).
+            if not any(req is not None and not req.done
+                       and len(req.generated) < req.max_tokens
+                       and not req.spec_inflight
+                       and self._propose_locked(req)
+                       for req in self.slot_req):
+                return False
+            n = len(self._pending)
+        # drain the entries present NOW: chained verify rounds appended by
+        # these harvests belong to already-speculating slots and never
+        # reference the transitioning ones
+        for _ in range(n):
+            self._harvest_one()
+        with self._lock:
+            rows = []  # (slot, req, draft, base_len)
+            for slot, req in enumerate(self.slot_req):
+                if req is None or req.spec_inflight \
+                        or req.dispatched >= req.max_tokens:
+                    continue
+                draft = self._propose_locked(req)
+                if not draft:
+                    continue
+                # device cache length for this slot: prompt + every
+                # recorded token except the current one (the verify
+                # round's position-0 input). Exact because the pipeline
+                # was just drained.
+                base_len = len(req.prompt_tokens) + len(req.generated) - 1
+                rows.append((slot, req, draft, base_len))
+        if not rows:
+            return False
+        self._dispatch_verify(rows)
+        return True
+
+    def _apply_verify(self, host: np.ndarray, rows, k: int) -> None:
+        """Record a verify round: per slot, accept the longest draft prefix
+        matching the per-position outputs, emit accepted+1 tokens through
+        _record_token, and roll the slot's seq_len back past the rejected
+        tail through the dirty-slot patch. Rollback is pure length
+        accounting — no allocator calls, so shared prefix-cache pages are
+        never decreffed or evicted by a rejection.
+
+        Slots whose fresh context drafts again chain straight into the next
+        verify round (their just-harvested host state is exact); the rest
+        drop back to decode blocks. Once the engine is stopping (shutdown
+        drains the entries in flight on the caller's thread) nothing
+        chains: the drain then ends with the rounds already dispatched."""
+        host = host.reshape(k + 1, -1)
+        finished: list[_Request] = []
+        chain = []  # (slot, req, draft, base_len)
+        with self._lock:
+            self.stats["spec_rounds"] += 1
+            for col, slot, req, draft, base_len in rows:
+                req.spec_inflight = False
+                outs = [int(host[s, col]) for s in range(k + 1)]
+                a = spec_decode.accept_length(draft, outs)
+                self.stats["spec_drafted_tokens"] += len(draft)
+                self.stats["spec_accepted_tokens"] += a
+                emitted = 0
+                for tok in outs[: a + 1]:
+                    if req.done:
+                        break  # stop token inside the accepted run
+                    self._record_token(req, tok)
+                    emitted += 1
+                if req.done:
+                    finished.append(req)
+                    if self.slot_req[slot] is req:
+                        self.slot_req[slot] = None
+                        self.free_slots.append(slot)
+                        self.page_tables[slot] = 0
+                        self.seq_lens[slot] = 0
+                        self._dirty_slots[slot] = (0, 0.0)
+                    continue
+                # roll back: the device seq_len advanced k+1 in the round;
+                # the truth is base_len + emitted (the accepted tokens are
+                # in cache, the last emitted token is the new current one)
+                new_len = base_len + emitted
+                self.seq_lens[slot] = new_len
+                self._dirty_slots[slot] = (new_len, req.temperature)
+                self._overrides[slot] = outs[emitted - 1]
+                req.dispatched = len(req.generated)
+                nxt = self._propose_locked(req)
+                if nxt:
+                    chain.append((slot, req, nxt, new_len))
+        if chain and not self._stop.is_set():
+            self._dispatch_verify(chain)
+        self._finish_requests(finished)
+
     def _harvest_one(self) -> None:
-        """Block on the OLDEST in-flight block's tokens and record them.
+        """Block on the OLDEST in-flight entry's tokens and record them.
 
         Entries are decode blocks (tokens [k, W] at the PACKED bucket
         width — the column is the request's position in that block's
-        packed index vector, NOT its slot id) or prefill first-tokens
-        (scalar, column 0)."""
+        packed index vector, NOT its slot id), prefill first-tokens
+        (scalar, column 0), or verify rounds (meta ("spec", k), tokens
+        [k+1, W], recorded by _apply_verify)."""
         with self._lock:
             if not self._pending:
                 return
             fetch, snapshot, k = self._pending.pop(0)
         if self._prof.enabled:
             t0 = time.perf_counter()
-            host_toks = fetch.wait()  # THE device sync: oldest block only
+            host_toks = fetch.wait()  # THE device sync: oldest entry only
             self._prof.record("harvest", time.perf_counter() - t0)
         else:
             host_toks = fetch.wait()
+        if isinstance(k, tuple):  # ("spec", draft_len) verify round
+            self._apply_verify(host_toks, snapshot, k[1])
+            return
         host_toks = host_toks.reshape(k, -1)
         finished: list[_Request] = []
         with self._lock:
@@ -847,7 +1108,8 @@ class LLMEngine:
         self._finish_requests(finished)
 
     def _finish_requests(self, finished: list[_Request]) -> None:
-        """Completion tail: free pages, release waiters, reap abandoned."""
+        """Completion tail shared by decode and verify harvests: free pages,
+        release waiters, reap abandoned."""
         for req in finished:
             self.allocator.free(req.pages)
             req.pages = []

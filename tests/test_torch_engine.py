@@ -54,6 +54,10 @@ def engines(tmp_path_factory):
     ckpt = jllama.save_params(params, str(tmp_path_factory.mktemp("ckpt")))
     jcfg, tcfg = _configs(ckpt)
     jeng, teng = JEngine(jcfg, rng_seed=0), TEngine(tcfg, rng_seed=0)
+    # started here, so that a test which reaches the engines only through a
+    # server (and runs on a test worker of its own) finds their loops up
+    jeng.start()
+    teng.start()
     yield jeng, teng
     jeng.shutdown()
     teng.shutdown()
@@ -162,6 +166,11 @@ def test_default_device_without_gpu_raises(monkeypatch):
 def test_unported_features_raise(field, value):
     cfg = TConfig(model_config=tllama.llama_tiny(), device="cpu",
                   **{field: value})
+    if field == "spec_decode_enabled":
+        # ported since: the engine builds with speculation on
+        # (tests/test_torch_spec_decode.py holds it)
+        assert TEngine(cfg)._spec_on
+        return
     with pytest.raises(NotImplementedError, match=field):
         TEngine(cfg)
 
