@@ -18,34 +18,44 @@ Phases, each of which raises on failure (nothing is caught and carried on):
    timed (CUDA events, and device time by the profiler) beside the bound
    and the plain version: decode B=32, the speculative serving path's
    verify at W=32, T=spec_draft_len+1, and chunks;
-3. greedy identity: ``LLMEngine`` on llama_tiny in fp32 through the kernel,
-   through the gather path and through the kernel with speculative
-   decoding on must produce identical tokens (the kernel run's launches,
-   all on ``paged_attention_kernel``, are counted; the spec run must run
-   verify rounds);
+3. greedy identity: ``LLMEngine`` on llama_tiny in fp32 through the kernel
+   with CUDA graphs on and off, through the gather path and through the
+   kernel with speculative decoding on, graphs on and off, must produce
+   identical tokens; each kernel run's launches (all on
+   ``paged_attention_kernel``, counted through graph replays) must equal
+   the plan its stats imply, and the spec runs must run verify rounds.
+   Then sampling at temperature 1.0: one decode graph replayed twice on
+   the same inputs must draw different tokens, and two engines from one
+   seed the same stream;
 4. the serving path at full width: ``LLMServer`` serving llama3_1b (bf16,
    random weights from a seeded generator) at the serve bench's engine
-   settings answers completions, some concurrent, through the kernels;
-   every launch counter is zeroed just before and read just after: every
-   prefill chunk must have run ``paged_chunk_hopper``, the decode steps
-   ``paged_decode_hopper``, and no launch ``paged_attention_kernel``;
+   settings answers completions, some concurrent, through the kernels,
+   with CUDA graphs on and then off on the same weights; in each arm every
+   launch counter is zeroed once the engine has started and read after
+   the waves: the launches must be the plan of its stats (every prefill
+   chunk on ``paged_chunk_hopper``, every decode step on
+   ``paged_decode_hopper``, none on ``paged_attention_kernel``). Per arm:
+   TTFT, ITL, the wave's tokens/s, the profiled wave's device busy share,
+   launches and ``cudaGraphLaunch`` calls, warmup seconds and the graphs'
+   pool bytes; how many requests' tokens the arms share;
 4b. speculative decoding on that path: ``LLMServer`` with
-   ``spec_decode_enabled`` on, then off, then off again (the control), on
-   phase 4's weights, streams one wave of 8 concurrent greedy completions
-   of 64 tokens (repetitive code and quoted text, one prompt past
-   ``prefill_chunk``); every request must return its 64 tokens, verify
-   rounds must run, and the launch counters (zeroed once each engine has
-   started) must show every verify round and decode step on
-   ``paged_decode_hopper`` (n_layers x (steps - spec_draft_len x verify
-   rounds) launches) and none on ``paged_attention_kernel``; it prints the
-   accept rate, tokens a slot and round, live slots a round, the wave's
-   output tokens/s with spec on and off, and how many requests' bf16
-   tokens are identical. The same wave in fp32 (every launch on
-   ``paged_attention_kernel``) must give identical tokens with spec on and
-   off. Then, from one prefilled pool in bf16 and in
-   fp32, one decode step's logits through the kernel and through the
-   gather path, and one verify step's logits against as many sequential
-   decode steps fed the same tokens;
+   ``spec_decode_enabled`` on and off, each with CUDA graphs on and off,
+   then off again (the control), on phase 4's weights, streams one wave of
+   8 concurrent greedy completions of 64 tokens (repetitive code and
+   quoted text, one prompt past ``prefill_chunk``); every request must
+   return its 64 tokens, verify rounds must run, and the launch counters
+   (zeroed once each engine has started) must show every verify round and
+   decode step on ``paged_decode_hopper`` (n_layers x (steps -
+   spec_draft_len x verify rounds) launches) and none on
+   ``paged_attention_kernel``; it prints the accept rate, tokens a slot
+   and round, live slots a round, each run's output tokens/s, and how
+   many requests' bf16 tokens are identical. The same wave in fp32 (every
+   launch on ``paged_attention_kernel``) must give identical tokens with
+   spec on (graphs on and off) and off. Then, from one prefilled pool in
+   bf16 and in fp32, one decode step's logits through the kernel and
+   through the gather path, one verify step's logits against as many
+   sequential decode steps fed the same tokens, and both steps replayed
+   from a captured CUDA graph against eager (reported bit for bit);
 5. the three flash-attention kernels against their plain versions on the
    card (bf16 and fp32, causal and not, at the training shapes, a small
    D=64 one and a ragged T=200 with B=2, H=3 at D=128 and D=32; two
@@ -66,10 +76,11 @@ Phases, each of which raises on failure (nothing is caught and carried on):
    backward, against the dequantized plain product at the training shape
    and at an 8-row decode shape; the card is asked which row counts
    ``torch._int_mm`` refuses, and the product must pad exactly those;
-9. phase 4b's bf16 wave once more with spec on and off, each under the
-   profiler: device busy share, launches and the decode route's device
-   time (last, so that its large profiles share nothing with the kernel
-   timings).
+9. phase 4b's bf16 wave once more with spec on and off, each with CUDA
+   graphs on and off, each under the profiler: device busy share,
+   launches, host calls (``cudaGraphLaunch`` must be called with graphs
+   on) and the decode route's device time (last, so that its large
+   profiles share nothing with the kernel timings).
 
 Prints numbers on earlier lines, then a ``{"kernels": [...]}`` line (each
 row names the CUDA kernel it timed under ``kernel``), then the card's name
@@ -391,12 +402,23 @@ def phase_kernels(card: str):
 
 
 # ---------------------------------------------------------------------------
-# phase 3: greedy identity, kernel vs gather vs kernel with speculative
-# decoding, llama_tiny fp32
+# phase 3: greedy identity, kernel (CUDA graphs on and off) vs gather vs
+# kernel with speculative decoding, llama_tiny fp32; sampling through a
+# graph
 # ---------------------------------------------------------------------------
 
-def phase_identity():
+def graphs_line(eng) -> str:
+    """An engine's CUDA graph counters (``LLMEngine._graphs``)."""
+    g = eng._graphs
+    if g is None:
+        return "CUDA graphs off"
+    return (f"{g.captures} graphs captured, {g.replays} replays, pool "
+            f"{g.pool_bytes} bytes")
+
+
+def phase_identity(card: str):
     from ray_torch.models import llama
+    from ray_torch.ops import paged_attention as pa
     from ray_torch.serve.llm import LLMConfig, LLMEngine
 
     mcfg = llama.llama_tiny(vocab_size=512)
@@ -406,21 +428,23 @@ def phase_identity():
     waves = [[shared + " and keeps running far past the fence",  # > chunk
               "abc abc abc abc abc", "abc abc abc", "hello"],
              [shared + " once more"]]                        # prefix hit
-    from ray_torch.ops import paged_attention as pa
-
     outs, launches = {}, {}
-    for run, kernel, spec in (("kernel", "cuda", False),
-                              ("gather", "gather", False),
-                              ("kernel, spec", "cuda", True)):
-        for name in pa.launches:            # count this engine's run only
-            pa.launches[name] = 0
-        eng = LLMEngine(LLMConfig(
+    for run, kernel, spec, graphs in (
+            ("kernel", "cuda", False, True),
+            ("kernel, eager", "cuda", False, False),
+            ("gather", "gather", False, True),
+            ("kernel, spec", "cuda", True, True),
+            ("kernel, spec, eager", "cuda", True, False)):
+        cfg = LLMConfig(
             model_config=mcfg, device="cuda", attention_kernel=kernel,
             max_batch_size=4, page_size=8, num_pages=64, max_prompt_len=64,
             max_seq_len=128, prefill_chunk=16, max_tokens=32,
-            spec_decode_enabled=spec), params=params)
+            spec_decode_enabled=spec, cuda_graphs=graphs)
+        eng = LLMEngine(cfg, params=params)
         eng.start()
         try:
+            for name in pa.launches:        # count this engine's traffic
+                pa.launches[name] = 0
             toks = []
             for wave in waves:
                 rids = [eng.submit(p, temperature=0.0) for p in wave]
@@ -430,44 +454,105 @@ def phase_identity():
                         raise RuntimeError(f"{run} engine: {r['error']}")
                 toks += [r["tokens"] for r in res]
             stats = eng.engine_stats()
+            launches[run] = dict(pa.launches)
         finally:
             eng.shutdown()
-        launches[run] = dict(pa.launches)
         assert stats["attention_backend"] == kernel, stats["attention_backend"]
         assert stats["prefix_hits"] >= 1 and stats["attn_chunk_dispatches"] > 0
+        if (eng._graphs is not None) != graphs or graphs and not (
+                eng._graphs.replays > 0
+                and eng._graphs.captures == len(eng._programs)):
+            raise AssertionError(f"{run}: {graphs_line(eng)}, programs "
+                                 f"{sorted(eng._programs)}")
         if spec:
-            log(f"  spec run: {stats['spec_rounds']} verify rounds, "
+            # with graphs on the host dispatches a request's decode blocks
+            # before its drafts show, so it may run few verify rounds here;
+            # phase 4b runs them at full width
+            log(f"  {run}: {stats['spec_rounds']} verify rounds, "
                 f"{stats['spec_accepted_tokens']} of "
                 f"{stats['spec_drafted_tokens']} drafted tokens accepted")
-            if not stats["spec_rounds"] > 0:
+            if not (graphs or stats["spec_rounds"] > 0):
                 raise AssertionError("the spec-on engine ran no verify round")
+        if kernel == "cuda":
+            want = planned_launches(cfg, stats)
+            log(f"  {run}: launches {launches[run]} (planned {want}); "
+                f"{graphs_line(eng)}")
+            if launches[run] != want or not want["paged_attention_kernel"]:
+                raise AssertionError(f"{run}: launches {launches[run]} are "
+                                     f"not the planned {want}")
         outs[run] = toks
-    for run in ("gather", "kernel, spec"):
+    for run in outs:
         if outs[run] != outs["kernel"]:
             raise AssertionError(f"greedy tokens differ: kernel "
                                  f"{outs['kernel']} vs {run} {outs[run]}")
     log(f"  llama_tiny fp32: {len(outs['kernel'])} requests, "
-        f"{sum(map(len, outs['kernel']))} greedy tokens identical "
-        "(kernel vs gather vs kernel with speculative decoding; prefix hit "
-        "+ chunked prefill on the path)")
-    for run in ("kernel", "kernel, spec"):
-        log(f"  kernel launches of the fp32 engine run ({run}): "
-            + ", ".join(f"{k} {v}" for k, v in launches[run].items()))
-    launches = launches["kernel"]
-    if not launches["paged_attention_kernel"] > 0:
-        raise AssertionError(f"the fp32 engine run did not launch "
-                             f"paged_attention_kernel: {launches}")
-    return launches
+        f"{sum(map(len, outs['kernel']))} greedy tokens identical across "
+        f"{', '.join(outs)} (graphs on unless eager; prefix hit + chunked "
+        f"prefill on the path) [{card}]")
+    phase_sampling(mcfg, params, card)
+    return launches["kernel"]
+
+
+def phase_sampling(mcfg, params, card: str):
+    """Temperature 1.0 through CUDA graphs, on two engines from one seed:
+    each answers one sampled request, then replays its (width 8, 1 step)
+    decode graph twice on the same inputs (8 rows at position 0 on pages
+    of their own, the same tokens and lengths). The replays must draw
+    different tokens in most rows (a generator the graph did not register
+    draws the same numbers at every replay), and the engines must give the
+    same stream and the same draws."""
+    from ray_torch.serve.llm import LLMConfig, LLMEngine
+
+    cfg = LLMConfig(model_config=mcfg, device="cuda", max_batch_size=8,
+                    page_size=8, num_pages=64, max_prompt_len=64,
+                    max_seq_len=128, max_tokens=32)
+    w = cfg.max_batch_size
+    streams, draws = [], []
+    for _ in range(2):
+        eng = LLMEngine(cfg, params=params, rng_seed=5)
+        eng.start()
+        try:
+            out = eng.generate("sample from here", temperature=1.0)
+        finally:
+            eng.shutdown()
+        if out["error"] is not None:
+            raise RuntimeError(f"sampled request: {out['error']}")
+        streams.append(out["tokens"])
+        prog = eng._programs[("decode", w, 1)]
+        eng._stage(prog.inputs[0], np.arange(w, dtype=np.int64))
+        eng._pt_dev[:w] = 0
+        eng._pt_dev[:w, 0] = torch.arange(1, w + 1, dtype=torch.int32,
+                                         device="cuda")
+        eng._temps_dev[:w] = 1.0
+        replays = []
+        for _ in range(2):
+            eng._sl_dev[:w] = 0
+            eng._dev_tokens[:w] = torch.arange(100, 100 + w, device="cuda")
+            replays.append(eng._graphs.replay(prog).clone())
+        draws.append(torch.cat(replays))
+    torch.cuda.synchronize()
+    same = int((draws[0][0] == draws[0][1]).sum())
+    log(f"  temperature 1.0, one decode graph (width {w}, 1 step) replayed "
+        f"twice on the same inputs: the same token in {same}/{w} rows; two "
+        f"engines from one seed: replays identical "
+        f"{torch.equal(draws[0], draws[1])}, sampled streams identical "
+        f"{streams[0] == streams[1]} ({len(streams[0])} tokens) [{card}]")
+    if not (2 * same < w and torch.equal(draws[0], draws[1])
+            and streams[0] == streams[1] and streams[0]):
+        raise AssertionError("sampling through CUDA graphs: replays repeat "
+                             "their draws or one seed gives two streams")
 
 
 # ---------------------------------------------------------------------------
 # phase 4: the main path at full width
 # ---------------------------------------------------------------------------
 
-def device_profile(run, top: int = 8):
+def device_profile(run, top: int = 8) -> dict:
     """Run ``run()`` under torch.profiler (CUDA activity only, to keep the
-    host overhead low) and summarize the kernels: total device time, its
-    share of the wall time, and the ``top`` kernels by device time."""
+    host overhead low) and summarize it: the wall, the kernels' device
+    time and its share of the wall, the kernels run, the host's CUDA API
+    calls by name (``cudaGraphLaunch`` among them) and the ``top`` kernels
+    by device time."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -475,17 +560,31 @@ def device_profile(run, top: int = 8):
         run()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    kernels = [e for e in prof.key_averages()
+    events = prof.key_averages()
+    kernels = [e for e in events
                if e.device_type == torch.autograd.DeviceType.CUDA
                and e.self_device_time_total > 0]
+    runtime = [e for e in events
+               if e.device_type == torch.autograd.DeviceType.CPU
+               and re.match(r"cu(da)?[A-Z]", e.key)]
+    calls = {e.key: e.count for e in runtime}
+    call_ms = {e.key: e.cpu_time_total / 1e3 for e in runtime}
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
-    log(f"  profiled run: wall {1e3 * wall:.1f} ms, kernels "
-        f"{busy_ms:.1f} ms = device busy {100 * busy_ms / (1e3 * wall):.1f}%"
-        f" of the wall ({sum(e.count for e in kernels)} launches)")
+    out = {"wall_ms": 1e3 * wall, "busy_ms": busy_ms,
+           "busy": busy_ms / (1e3 * wall),
+           "kernels": sum(e.count for e in kernels), "calls": calls,
+           "call_ms": call_ms,
+           "by_kernel": {e.key: e.self_device_time_total / 1e3
+                         for e in kernels}}
+    log(f"  profiled run: wall {out['wall_ms']:.1f} ms, kernels "
+        f"{busy_ms:.1f} ms = device busy {100 * out['busy']:.1f}% of the "
+        f"wall ({out['kernels']} kernels run; host calls, count and host "
+        f"ms: " + ", ".join(f"{k} {n} {call_ms[k]:.1f}" for k, n in sorted(
+            calls.items(), key=lambda kv: -kv[1])) + ")")
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:top]:
         log(f"    {e.self_device_time_total / 1e3:8.2f} ms {e.count:6d}x "
             f"{e.key[:90]}")
-    return busy_ms, {e.key: e.self_device_time_total / 1e3 for e in kernels}
+    return out
 
 
 def serve_config(**kw):
@@ -500,13 +599,16 @@ def serve_config(**kw):
         decode_block=8, pipeline_depth=3, pressure_decode_block=2, **kw)
 
 
-def phase_serve(card: str):
-    from ray_torch.models import llama
+def serve_arm(card: str, graphs: bool, params=None, max_tokens: int = 32):
+    """One arm of phase 4: an ``LLMServer`` (over ``params``, else weights
+    from seed 0) with CUDA graphs on or off answers three waves of
+    completions, the third profiled; the launch counters are zeroed once
+    the engine has started and must be the plan of its stats after the
+    waves. Returns what the arm measured."""
     from ray_torch.ops import paged_attention as pa
     from ray_torch.serve.llm import LLMServer
 
-    max_tokens = 32
-    cfg = serve_config(max_tokens=max_tokens)
+    cfg = serve_config(max_tokens=max_tokens, cuda_graphs=graphs)
     word = "the quick brown fox jumps over the lazy dog "
     shared = (word * 12)[:511]              # + BOS = 512 tokens = 4 pages
     wave1 = [f"request {i}: " + word * 3 for i in range(6)]
@@ -518,12 +620,15 @@ def phase_serve(card: str):
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    for name in pa.launches:                # count the main path only
-        pa.launches[name] = 0
     t0 = time.perf_counter()
-    srv = LLMServer(cfg, rng_seed=0)
+    srv = LLMServer(cfg, params=params, rng_seed=0)
     setup_s = time.perf_counter() - t0
+    eng = srv.engine
+    warmup_s = eng._prof.compile_s          # the warmup's first uses
+    captured = eng._graphs.captures if graphs else 0
     try:
+        for name in pa.launches:            # count the main path only
+            pa.launches[name] = 0
         results = []
         walls = []
         with concurrent.futures.ThreadPoolExecutor(len(wave1)) as pool:
@@ -537,22 +642,20 @@ def phase_serve(card: str):
                 results += serve(wave)
                 walls.append(time.perf_counter() - t0)
             # where a wave's time goes, outside the timed waves
-            busy_ms, by_kernel = device_profile(
-                lambda: results.extend(serve(wave3)))
+            prof = device_profile(lambda: results.extend(serve(wave3)))
         stats = srv.engine_stats()
+        launches = dict(pa.launches)
     finally:
         srv.shutdown()
-    launches = dict(pa.launches)
-    paged_ms = {name: sum(ms for key, ms in by_kernel.items() if name in key)
-                for name in launches}
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    paged_ms = {name: sum(ms for key, ms in prof["by_kernel"].items()
+                          if name in key) for name in launches}
     log(f"  paged kernels in the profiled wave: "
         + ", ".join(f"{k} {v:.2f} ms" for k, v in paged_ms.items())
         + f"; together {sum(paged_ms.values()):.2f} ms = "
-        f"{100 * sum(paged_ms.values()) / busy_ms:.1f}% of the device time "
-        f"[{card}]")
-    torch.cuda.synchronize()
-    peak = torch.cuda.max_memory_allocated()
-
+        f"{100 * sum(paged_ms.values()) / prof['busy_ms']:.1f}% of the "
+        f"device time [{card}]")
     for r in results:
         if r.get("error") or r["usage"]["completion_tokens"] != max_tokens:
             raise AssertionError(f"request {r['ray_tpu']['request_id']} "
@@ -566,49 +669,95 @@ def phase_serve(card: str):
     # every prefill chunk (16 rows or more a rep, so past the decode
     # route's 16 rows) on the chunk route, every decode step on the decode
     # route: in bf16 serving nothing is left for paged_attention_kernel
-    layers = cfg.model_config.n_layers
-    log(f"  paged_attention_kernel launches on the bf16 serving path: "
-        f"{launches['paged_attention_kernel']} (0 expected)")
-    if not (launches["paged_decode_hopper"] > 0
-            and launches["paged_chunk_hopper"]
-            == layers * stats["attn_chunk_dispatches"] > 0
-            and launches["paged_attention_kernel"] == 0):
+    want = planned_launches(cfg, stats)
+    log(f"  kernel launches on the main path: "
+        + ", ".join(f"{k} {v}" for k, v in launches.items())
+        + f" (planned {want}); engine decode blocks "
+        f"{stats['attn_decode_dispatches']}, chunks "
+        f"{stats['attn_chunk_dispatches']}, prefix hits "
+        f"{stats['prefix_hits']}, steps {stats['steps']}; {graphs_line(eng)}")
+    if launches != want or not (want["paged_decode_hopper"]
+                                and want["paged_chunk_hopper"]) \
+            or want["paged_attention_kernel"]:
         raise AssertionError(f"the serving path's paged launches {launches} "
-                             f"are not {stats['attn_chunk_dispatches']} "
-                             f"chunks x {layers} layers on "
-                             f"paged_chunk_hopper and the decode steps on "
+                             f"are not the plan {want}: every chunk on "
+                             f"paged_chunk_hopper, every decode step on "
                              f"paged_decode_hopper")
     if not paged_ms["paged_decode_hopper"] > 0:
         raise AssertionError("the profiled wave ran no paged_decode_hopper")
+    if graphs and not (prof["calls"].get("cudaGraphLaunch", 0) > 0
+                       and eng._graphs.captures == captured):
+        raise AssertionError(f"graphs on: {graphs_line(eng)} ({captured} "
+                             f"at warmup), cudaGraphLaunch "
+                             f"{prof['calls'].get('cudaGraphLaunch', 0)}")
     ttfts = [r["ray_tpu"]["ttft_s"] for r in results[:10]]
-    decode_rates = [(max_tokens - 1)
-                    / max(r["ray_tpu"]["latency_s"] - ttft, 1e-9)
-                    for r, ttft in zip(results, ttfts)]
+    waits = [r["ray_tpu"]["queue_wait_s"] for r in results[:10]]
+    gaps = [(r["ray_tpu"]["latency_s"] - ttft) / (max_tokens - 1)
+            for r, ttft in zip(results, ttfts)]
     out_tokens = sum(r["usage"]["completion_tokens"] for r in results[:8])
+    return {"cfg": cfg, "params": eng.params, "launches": launches,
+            "texts": [r["choices"][0]["text"] for r in results],
+            "setup_s": setup_s, "warmup_s": warmup_s,
+            "graphs": graphs_line(eng),
+            "pool_bytes": eng._graphs.pool_bytes if graphs else 0,
+            "ttft_p50": statistics.median(ttfts), "ttft_max": max(ttfts),
+            "ttft_long": ttfts[6], "ttft_hit": ttfts[8],
+            "wait_p50": statistics.median(waits),
+            "itl_p50": statistics.median(gaps),
+            "rate_p50": 1 / statistics.median(gaps),
+            "wave_tps": out_tokens / walls[0], "wave_s": walls[0],
+            "out_tokens": out_tokens, "prof": prof, "stats": stats,
+            "peak": peak}
+
+
+def phase_serve(card: str):
+    """Phase 4: ``serve_arm`` with CUDA graphs on, then off on the same
+    weights; per arm the figures, then how many completions the arms
+    share. Returns the weights and the graphs-on arm's launches."""
+    from ray_torch.models import llama
+
+    arms = {"on": serve_arm(card, True)}
+    arms["off"] = serve_arm(card, False, params=arms["on"]["params"])
+    cfg = arms["on"]["cfg"]
     log(f"  llama3_1b bf16 ({llama.num_params(cfg.model_config) / 1e9:.3f}B "
-        f"params), {len(results)} requests x {max_tokens} tokens [{card}]")
-    log(f"  engine build + warmup {setup_s:.2f} s")
-    log(f"  TTFT p50 {1e3 * statistics.median(ttfts):.1f} ms, max "
-        f"{1e3 * max(ttfts):.1f} ms (900-token prompt: "
-        f"{1e3 * ttfts[6]:.1f} ms, prefix hit: {1e3 * ttfts[8]:.1f} ms) "
-        f"[{card}]")
-    log(f"  decode tokens/s per request p50 "
-        f"{statistics.median(decode_rates):.1f}; wave of 8 concurrent: "
-        f"{out_tokens} tokens in {walls[0]:.3f} s = "
-        f"{out_tokens / walls[0]:.1f} output tokens/s [{card}]")
-    log(f"  engine phases p50: decode_dispatch "
-        f"{stats['phase_decode_dispatch_p50_ms']} ms, harvest "
-        f"{stats['phase_harvest_p50_ms']} ms, prefill "
-        f"{stats['phase_prefill_p50_ms']} ms, chunk_prefill "
-        f"{stats['phase_chunk_prefill_p50_ms']} ms")
-    log(f"  peak torch.cuda.max_memory_allocated {peak / 2**30:.3f} GiB "
-        f"[{card}]")
-    log(f"  kernel launches on the main path: "
-        + ", ".join(f"{k} {v}" for k, v in launches.items())
-        + f"; engine decode blocks {stats['attn_decode_dispatches']}, "
-        f"chunks {stats['attn_chunk_dispatches']}, prefix hits "
-        f"{stats['prefix_hits']}, steps {stats['steps']}")
-    return srv.engine.params, launches
+        f"params), {len(arms['on']['texts'])} requests x {cfg.max_tokens} "
+        f"tokens a server [{card}]")
+    for arm, a in arms.items():
+        st, pr = a["stats"], a["prof"]
+        log(f"  graphs {arm:<3}: warmup {a['warmup_s']:.3f} s (engine build "
+            f"+ warmup {a['setup_s']:.2f} s), {a['graphs']}; TTFT p50 "
+            f"{1e3 * a['ttft_p50']:.1f} ms, max {1e3 * a['ttft_max']:.1f} ms "
+            f"(900-token prompt {1e3 * a['ttft_long']:.1f} ms, prefix hit "
+            f"{1e3 * a['ttft_hit']:.1f} ms; queue wait p50 "
+            f"{1e3 * a['wait_p50']:.1f} ms); ITL p50 "
+            f"{1e3 * a['itl_p50']:.2f} ms (a request's mean gap after its "
+            f"first token); wave of 8: {a['out_tokens']} tokens "
+            f"in {a['wave_s']:.3f} s = {a['wave_tps']:.1f} output tokens/s; "
+            f"decode tokens/s per request {a['rate_p50']:.1f} (1 / ITL "
+            f"p50) [{card}]")
+        log(f"  graphs {arm:<3}: phases p50: decode_dispatch "
+            f"{st['phase_decode_dispatch_p50_ms']} ms, harvest "
+            f"{st['phase_harvest_p50_ms']} ms, prefill "
+            f"{st['phase_prefill_p50_ms']} ms, chunk_prefill "
+            f"{st['phase_chunk_prefill_p50_ms']} ms; profiled wave: wall "
+            f"{pr['wall_ms']:.1f} ms, kernels {pr['busy_ms']:.1f} ms, device "
+            f"busy {100 * pr['busy']:.1f}%, {pr['kernels']} kernels run, "
+            f"cudaGraphLaunch {pr['calls'].get('cudaGraphLaunch', 0)}, "
+            f"cudaLaunchKernel {pr['calls'].get('cudaLaunchKernel', 0)} "
+            f"({pr['call_ms'].get('cudaLaunchKernel', 0.0):.1f} ms on the "
+            f"host), cudaStreamSynchronize "
+            f"{pr['calls'].get('cudaStreamSynchronize', 0)}; "
+            f"peak torch.cuda.max_memory_allocated "
+            f"{a['peak'] / 2**30:.3f} GiB [{card}]")
+    on, off = arms["on"], arms["off"]
+    compare_streams("phase 4 bf16 completion text, graphs on vs off",
+                    on["texts"], off["texts"], card)
+    log(f"  graphs on / off: wave tokens/s "
+        f"{on['wave_tps'] / off['wave_tps']:.3f}x, TTFT p50 "
+        f"{on['ttft_p50'] / off['ttft_p50']:.3f}x, device busy "
+        f"{100 * on['prof']['busy']:.1f}% / {100 * off['prof']['busy']:.1f}%"
+        f", graph pool {on['pool_bytes']} bytes [{card}]")
+    return on["params"], on["launches"]
 
 
 # ---------------------------------------------------------------------------
@@ -687,6 +836,8 @@ def serve_wave(cfg, params, wave, max_tokens):
         dispatch(r)
 
     srv.engine._dispatch_verify = counted
+    graphs = srv.engine._graphs
+    captured = graphs.captures if graphs is not None else 0
     try:
         for name in pa.launches:
             pa.launches[name] = 0
@@ -709,10 +860,14 @@ def serve_wave(cfg, params, wave, max_tokens):
     log(f"  kernel launches {launches} (planned {want}); engine steps "
         f"{stats['steps']}, decode blocks {stats['attn_decode_dispatches']}"
         f", verify rounds {stats['attn_verify_dispatches']}, chunks "
-        f"{stats['attn_chunk_dispatches']}")
+        f"{stats['attn_chunk_dispatches']}; {graphs_line(srv.engine)}")
     if launches != want or not stats["attn_chunk_dispatches"] > 0:
         raise AssertionError(f"launches {launches} are not the planned "
                              f"{want}")
+    if graphs is not None and not (graphs.replays > 0
+                                   and graphs.captures == captured):
+        raise AssertionError(f"{graphs_line(srv.engine)}, {captured} "
+                             f"captured at warmup")
     return [toks for toks, _ in outs], wall, stats, launches, rows
 
 
@@ -730,22 +885,26 @@ def compare_streams(name, a, b, card):
 def phase_spec_serve(card: str, params):
     """``LLMServer`` serving llama3_1b with speculative decoding on and off,
     one wave of 8 concurrent greedy streams of 64 tokens each, on phase 4's
-    weights. In bf16: spec on, off, and off again on a fresh engine (the
-    control); every verify round (16 layers, one launch a layer at
-    [W, spec_draft_len + 1]) and every decode step must run
-    ``paged_decode_hopper`` and nothing ``paged_attention_kernel``, and
-    bf16 token differences are reported. In fp32 (every launch on
-    ``paged_attention_kernel``): spec on and off must give identical
-    tokens."""
+    weights. In bf16: spec on and off, each with CUDA graphs on and off,
+    then off again on a fresh engine (the control); every verify round (16
+    layers, one launch a layer at [W, spec_draft_len + 1]) and every decode
+    step must run ``paged_decode_hopper`` and nothing
+    ``paged_attention_kernel``, and bf16 token differences are reported.
+    In fp32 (every launch on ``paged_attention_kernel``): spec on with
+    graphs on and off and spec off must give identical tokens."""
     from ray_torch.models import llama
     from ray_torch.ops import paged_attention as pa
 
     max_tokens = 64
     wave = spec_wave()
     runs = {}
-    for run, spec in (("on", True), ("off", False), ("off again", False)):
-        log(f"  bf16, spec {run}:")
-        cfg = serve_config(max_tokens=max_tokens, spec_decode_enabled=spec)
+    for run, spec, graphs in (("on", True, True), ("on, eager", True, False),
+                              ("off", False, True),
+                              ("off, eager", False, False),
+                              ("off again", False, True)):
+        log(f"  bf16, spec {run}{'' if graphs else ' (CUDA graphs off)'}:")
+        cfg = serve_config(max_tokens=max_tokens, spec_decode_enabled=spec,
+                           cuda_graphs=graphs)
         runs[run] = serve_wave(cfg, params, wave, max_tokens)
     mc, k = cfg.model_config, cfg.spec_draft_len
     on, off, again = runs["on"], runs["off"], runs["off again"]
@@ -760,63 +919,88 @@ def phase_spec_serve(card: str, params):
     log(f"  verify launches at [W, {k + 1}]: route {route}, "
         f"{verify_launches} of the {on[3]['paged_decode_hopper']} "
         f"paged_decode_hopper launches")
-    log(f"  llama3_1b bf16, {len(wave)} concurrent greedy streams x "
-        f"{max_tokens} tokens: spec_accept_rate {stats['spec_accept_rate']}"
-        f" ({stats['spec_accepted_tokens']} of "
-        f"{stats['spec_drafted_tokens']} drafted), "
-        f"{stats['spec_rounds']} verify rounds, "
-        f"{stats['spec_accepted_tokens'] / sum(rows) + 1:.3f} tokens a slot "
-        f"and round; live slots a round: mean {sum(rows) / len(rows):.2f}, "
-        f"max {max(rows)} ({sum(rows)} slot-rounds) [{card}]")
-    log(f"  engine phases p50, spec on: verify_dispatch "
-        f"{stats['phase_verify_dispatch_p50_ms']} ms, decode_dispatch "
-        f"{stats['phase_decode_dispatch_p50_ms']} ms, harvest "
-        f"{stats['phase_harvest_p50_ms']} ms; spec off: decode_dispatch "
-        f"{off[2]['phase_decode_dispatch_p50_ms']} ms")
+    for run in ("on", "on, eager"):
+        st, rw = runs[run][2], runs[run][4]
+        log(f"  llama3_1b bf16, spec {run}, {len(wave)} concurrent greedy "
+            f"streams x {max_tokens} tokens: spec_accept_rate "
+            f"{st['spec_accept_rate']} ({st['spec_accepted_tokens']} of "
+            f"{st['spec_drafted_tokens']} drafted), {st['spec_rounds']} "
+            f"verify rounds, {st['spec_accepted_tokens'] / sum(rw) + 1:.3f} "
+            f"tokens a slot and round; live slots a round: mean "
+            f"{sum(rw) / len(rw):.2f}, max {max(rw)} ({sum(rw)} slot-rounds)"
+            f" [{card}]")
+    for run, r in runs.items():
+        st = r[2]
+        log(f"  engine phases p50, spec {run}: verify_dispatch "
+            f"{st['phase_verify_dispatch_p50_ms']} ms, decode_dispatch "
+            f"{st['phase_decode_dispatch_p50_ms']} ms, harvest "
+            f"{st['phase_harvest_p50_ms']} ms")
     n_out = len(wave) * max_tokens
+    tps = {run: n_out / r[1] for run, r in runs.items()}
     log("  wave wall: " + "; ".join(
-        f"spec {run} {r[1]:.3f} s = {n_out / r[1]:.1f} output tokens/s"
+        f"spec {run} {r[1]:.3f} s = {tps[run]:.1f} output tokens/s"
         for run, r in runs.items()) + f" [{card}]")
+    log(f"  spec on / off tokens/s: CUDA graphs "
+        f"{tps['on'] / tps['off']:.3f}x, eager "
+        f"{tps['on, eager'] / tps['off, eager']:.3f}x; graphs on / off: "
+        f"spec on {tps['on'] / tps['on, eager']:.3f}x, spec off "
+        f"{tps['off'] / tps['off, eager']:.3f}x [{card}]")
     compare_streams("bf16, spec on vs off", on[0], off[0], card)
     compare_streams("bf16, spec off vs off again", off[0], again[0], card)
+    compare_streams("bf16, spec on, graphs on vs off", on[0],
+                    runs["on, eager"][0], card)
+    compare_streams("bf16, spec off, graphs on vs off", off[0],
+                    runs["off, eager"][0], card)
 
     fp32 = _cast(params, torch.float32)
     mc32 = llama.llama3_1b(max_seq_len=2048, dtype=torch.float32)
     streams = {}
-    for spec in (True, False):
-        log(f"  fp32, spec {'on' if spec else 'off'}:")
-        streams[spec] = serve_wave(serve_config(
+    for run, spec, graphs in (("on", True, True), ("on, eager", True, False),
+                              ("off", False, True)):
+        log(f"  fp32, spec {run}{'' if graphs else ' (CUDA graphs off)'}:")
+        streams[run] = serve_wave(serve_config(
             model_config=mc32, max_tokens=max_tokens,
-            spec_decode_enabled=spec), fp32, wave, max_tokens)[0]
-    if not compare_streams("fp32, spec on vs off", streams[True],
-                           streams[False], card):
-        raise AssertionError("fp32 greedy tokens differ with spec on")
+            spec_decode_enabled=spec, cuda_graphs=graphs), fp32, wave,
+            max_tokens)[0]
+    same = [compare_streams(f"fp32, spec {a} vs spec {b}", streams[a],
+                            streams[b], card)
+            for a, b in (("on", "on, eager"), ("on", "off"))]
+    if not all(same):
+        raise AssertionError("fp32 greedy tokens differ between CUDA graphs "
+                             "on and off or with spec on")
     del fp32
     return on[3], verify_launches, k
 
 
 def phase_spec_profile(card: str, max_tokens: int = 64):
-    """Where phase 4b's bf16 wave spends its time, spec on and off: one
-    profiled wave each on a fresh server (device busy share, launches, the
-    decode route's device time), over phase 4's weights (the same seed).
-    Run last: a profile of ~160,000 launches must not share a process's
-    profiler with the kernel timings."""
+    """Where phase 4b's bf16 wave spends its time, spec on and off, each
+    with CUDA graphs on and off: one profiled wave each on a fresh server
+    (device busy share, launches, host calls, the decode route's device
+    time), over phase 4's weights (the same seed). Run last: a profile of
+    ~160,000 launches must not share a process's profiler with the kernel
+    timings."""
     from ray_torch.serve.llm import LLMServer
 
     for spec in (True, False):
-        log(f"  bf16, spec {'on' if spec else 'off'}, profiled wave:")
-        srv = LLMServer(serve_config(max_tokens=max_tokens,
-                                     spec_decode_enabled=spec),
-                        rng_seed=0)
-        try:
-            busy_ms, by_kernel = device_profile(
-                lambda: stream_wave(srv, spec_wave(), max_tokens), top=4)
-        finally:
-            srv.shutdown()
-        paged = sum(ms for key, ms in by_kernel.items()
-                    if "paged_decode_hopper" in key)
-        log(f"  paged_decode_hopper {paged:.2f} ms = "
-            f"{100 * paged / busy_ms:.1f}% of the device time [{card}]")
+        for graphs in (True, False):
+            log(f"  bf16, spec {'on' if spec else 'off'}, CUDA graphs "
+                f"{'on' if graphs else 'off'}, profiled wave:")
+            srv = LLMServer(serve_config(max_tokens=max_tokens,
+                                         spec_decode_enabled=spec,
+                                         cuda_graphs=graphs), rng_seed=0)
+            try:
+                prof = device_profile(
+                    lambda: stream_wave(srv, spec_wave(), max_tokens), top=4)
+            finally:
+                srv.shutdown()
+            paged = sum(ms for key, ms in prof["by_kernel"].items()
+                        if "paged_decode_hopper" in key)
+            log(f"  paged_decode_hopper {paged:.2f} ms = "
+                f"{100 * paged / prof['busy_ms']:.1f}% of the device time "
+                f"[{card}]")
+            if graphs and not prof["calls"].get("cudaGraphLaunch", 0) > 0:
+                raise AssertionError("the graphs-on profile shows no "
+                                     "cudaGraphLaunch")
 
 
 def _cast(tree, dtype):
@@ -892,7 +1076,52 @@ def phase_logits(params, draft_len: int):
                                  f"in {dtype}")
         verify_vs_decode(weights, pool, tables, seq, tokens, mcfg, page,
                          draft_len, tol, g)
+        graph_vs_eager(weights, pool, tables, seq, tokens, mcfg, page,
+                       draft_len, g)
         del weights, pool, kv, out
+
+
+def replayed(fn):
+    """``fn()`` captured into a CUDA graph, after one eager warm run on a
+    side stream, and replayed once: the graph's output."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = fn()
+    graph.replay()
+    return out
+
+
+def graph_vs_eager(weights, pool, tables, seq, first, mcfg, page, draft_len,
+                   g):
+    """One decode step and one verify step through the kernel, run eagerly
+    and replayed from a captured CUDA graph, each on its own copy of the
+    prefilled pool (a step writes its tokens' K/V in place, the same values
+    at every run): are the logits bit-identical? A capture changes how the
+    kernels are launched; whether cuBLAS picks other GEMM kernels under
+    capture is what this shows."""
+    from ray_torch.serve.llm import kv_cache as kvc
+
+    drafts = torch.randint(0, 32000, (first.shape[0], draft_len),
+                           generator=g, device=first.device)
+    span = torch.cat([first[:, None], drafts], dim=1)
+    for name, step, toks in (("decode", kvc.paged_decode_step, first),
+                             ("verify", kvc.paged_verify_step, span)):
+        def run(kv, step=step, toks=toks):
+            return step(weights, kv, tables, seq, toks, mcfg, page,
+                        "cuda")[0]
+
+        want = run({k: v.clone() for k, v in pool.items()})
+        kv = {k: v.clone() for k, v in pool.items()}
+        got = replayed(lambda: run(kv))
+        torch.cuda.synchronize()
+        log(f"  {name}-step logits {str(mcfg.dtype):<14} replayed from a "
+            f"captured graph vs eager: bit-identical {torch.equal(got, want)}"
+            f", max difference {float((got - want).abs().max()):.3e}")
 
 
 def verify_vs_decode(weights, pool, tables, seq, first, mcfg, page,
@@ -1216,7 +1445,8 @@ def phase_train(card: str):
     launches = dict(fa.launches)
     peak = torch.cuda.max_memory_allocated()
     # where one step's device time goes, outside the counted steps
-    busy_ms, by_kernel = device_profile(lambda: step(state, batch), top=14)
+    prof = device_profile(lambda: step(state, batch), top=14)
+    busy_ms, by_kernel = prof["busy_ms"], prof["by_kernel"]
     flash_ms = {name: sum(ms for key, ms in by_kernel.items() if name in key)
                 for name in ("flash_fwd", "flash_bwd_dkdv", "flash_bwd_dq")}
     # the bf16 step runs the Hopper kernel of each op and no other
@@ -1449,10 +1679,11 @@ def main() -> int:
     kernels = phase_kernels(card)
     log(f"  phase 2: {time.perf_counter() - t0:.1f} s")
 
-    log("[3] greedy identity: kernel, gather, kernel with speculative "
-        "decoding")
+    log("[3] greedy identity: kernel (CUDA graphs on and off), gather, "
+        "kernel with speculative decoding (graphs on and off); sampling "
+        "through a graph")
     t0 = time.perf_counter()
-    identity_launches = phase_identity()
+    identity_launches = phase_identity(card)
     log(f"  phase 3: {time.perf_counter() - t0:.1f} s")
 
     log("[4] main path: LLMServer, llama3_1b at full width")

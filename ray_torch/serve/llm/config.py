@@ -1,12 +1,22 @@
 """LLM serving config: the port's own copy of ``ray_tpu/serve/llm/config.py``.
 
 Same field names and defaults, so one dict configures either package, plus
-``device``, except ``attention_kernel``: where the reference says
-``"pallas"`` for its kernel, the port says ``"cuda"`` (and raises on
-``"pallas"``). Fields of features this slice of the port does not carry yet
-(KV tier, disaggregation, tensor parallelism, SLO and routing hooks) stay
-with their defaults; the engine raises if one of them is switched on rather
-than ignoring it.
+two fields of the port's own (``device``, ``cuda_graphs``), except
+``attention_kernel``: where the reference says ``"pallas"`` for its kernel,
+the port says ``"cuda"`` (and raises on ``"pallas"``).
+
+Of the fields of features this slice of the port does not carry yet, four
+make the engine raise unless they keep their defaults (``_NOT_PORTED`` in
+``engine.py``): ``kv_tier_enabled``, ``tp_degree``,
+``disagg_prompt_threshold`` and ``disagg_prefill_deployment``. The SLO and
+routing fields (``slo_ttft_p99_ms``, ``slo_e2e_p99_ms``,
+``prefix_summary_max_pages``) are read by the reference's serve layer
+(``ray_tpu/serve/proxy.py:263-311``,
+``ray_tpu/serve/llm/llm_server.py:477-479``), which waits for the port's
+serve layer: the engine accepts them and nothing reads them yet. Nothing
+reads the other fields of unported features either (``kv_tier_*`` and
+``warm_start_*``, which do nothing without the KV tier in the reference
+too, and ``failover_*``).
 """
 
 from __future__ import annotations
@@ -33,6 +43,11 @@ class LLMConfig:
     # where the engine runs: "cuda" (default) or "cpu". "cuda" without a
     # visible GPU raises — there is no silent CPU fallback.
     device: str = "cuda"
+    # the engine's decode blocks and verify rounds as captured CUDA graphs,
+    # one per signature (the reference's jitted programs): None (default)
+    # is on for a CUDA device and off on the CPU; True on the CPU raises;
+    # False dispatches every kernel of a step eagerly
+    cuda_graphs: Optional[bool] = None
 
     # engine sizing
     max_batch_size: int = 8           # decode slots

@@ -12,9 +12,20 @@ How the reference's JAX machinery maps onto PyTorch:
 - the jitted, donated programs are plain functions that update the KV pool
   and the device-resident slot state IN PLACE (where JAX donated the
   buffers and received new ones);
-- a multi-step decode block is a loop of K steps dispatched back to back
-  on the current CUDA stream — each step's input tokens are the previous
-  step's on-device samples, so the host never waits between them;
+- a multi-step decode block is a loop of K steps whose input tokens are
+  the previous step's on-device samples, so the host never waits between
+  them;
+- the reference's jitted decode program (one per (packed width, block
+  length)) and verify-k program (one per packed width) are each a
+  captured CUDA graph on the card (``LLMConfig.cuda_graphs``; a
+  ``_Program`` per signature): captured where the reference compiles
+  (warmup, else first use, inside the same ``compile_scope``) after one
+  eager warm run on a side stream, and replayed on static inputs (the
+  index vector, the drafts) that every dispatch fills in place. All graphs
+  share one memory pool. With graphs off, and on the CPU, the same
+  functions run eagerly on the same static inputs. Prefills, prefill
+  chunks, first-token samples and slot patches stay eager: the reference
+  compiles them as programs of their own;
 - the host harvests sampled tokens ``pipeline_depth`` blocks behind: each
   block's tokens start a ``non_blocking`` copy into pinned host memory at
   dispatch time and record a CUDA event; ``event.query()`` is the
@@ -26,14 +37,13 @@ How the reference's JAX machinery maps onto PyTorch:
   shape (B+1 rows, trash-row padded);
 - speculative decoding (``spec_decode_enabled``) verifies a greedy slot's
   n-gram draft in one verify round (``_verify_round``: k+1 positions per
-  slot through ``kv_cache.paged_verify_step``) in place of the reference's
-  jitted verify-k program; the host bookkeeping around it is the
-  reference's.
+  slot through ``kv_cache.paged_verify_step``); the host bookkeeping
+  around it is the reference's.
 
 This slice leaves out, for later slices: the KV tier (spill, restore, warm
-start), disaggregation, failover continuations, tensor parallelism, the
-flight-recorder / tracing / attribution / deadline hooks, and CUDA graphs.
-A config that switches one of them on raises.
+start), disaggregation, failover continuations, tensor parallelism, and
+the flight-recorder / tracing / attribution / deadline hooks. A config
+that switches one of them on raises.
 
 Threading model: one loop thread drives the device. ``submit()`` /
 ``drain()`` / ``result()`` / ``cancel()`` are thread-safe.
@@ -41,6 +51,7 @@ Threading model: one loop thread drives the device. ``submit()`` /
 
 from __future__ import annotations
 
+import functools
 import logging
 import threading
 import time
@@ -55,6 +66,7 @@ from ray_torch._device import resolve_device
 from ray_torch.models import llama
 from ray_torch.observability import profiling as profiling_mod
 from ray_torch.ops import _build
+from ray_torch.ops import paged_attention as paged_ops
 from ray_torch.serve.llm import kv_cache as kvc
 from ray_torch.serve.llm import spec_decode
 from ray_torch.serve.llm.config import LLMConfig
@@ -137,6 +149,102 @@ class _Fetch:
         return self.host.numpy()
 
 
+@dataclass
+class _Program:
+    """One decode (``("decode", width, block)``) or verify
+    (``("verify", width, draft_len)``) signature: the static inputs that
+    every dispatch of it fills in place (the index vector [W]; for verify
+    also the drafts [W, k]) and, with graphs on, its captured graph, the
+    graph's output and the kernel launches one replay makes."""
+    inputs: tuple
+    graph: Any = None
+    out: Optional[torch.Tensor] = None
+    launches: dict = field(default_factory=dict)
+
+
+def _cuda_graphs_on(flag: Optional[bool], device: torch.device) -> bool:
+    """``LLMConfig.cuda_graphs`` for ``device``: None is on for a CUDA
+    device and off on the CPU; True on the CPU raises (nothing falls back
+    silently, as with ``attention_kernel="cuda"``)."""
+    if flag is None:
+        return device.type == "cuda"
+    if flag and device.type != "cuda":
+        raise ValueError(f"LLMConfig.cuda_graphs=True needs a CUDA device, "
+                         f"got {device}")
+    return bool(flag)
+
+
+def _take_launches(before: dict) -> dict:
+    """The launches counted in ``paged_attention.launches`` since
+    ``before`` (a copy of it), by kernel, taken back out: a capture counts
+    each launch it records, and launches nothing."""
+    counts = paged_ops.launches
+    delta = {k: n - before.get(k, 0) for k, n in counts.items()
+             if n != before.get(k, 0)}
+    counts.update(before)
+    return delta
+
+
+def _add_launches(delta: dict) -> None:
+    """Count one replay's launches: the ones its capture recorded."""
+    for k, n in delta.items():
+        paged_ops.launches[k] += n
+
+
+class _CudaGraphs:
+    """The engine's captured programs on the card, and their counters
+    (``captures``, ``replays``, ``pool_bytes``), which ``engine_stats()``
+    leaves out.
+
+    Every graph allocates from ONE private memory pool. A graph's output is
+    read once, by the ``_Fetch`` copy enqueued right behind its replay on
+    the same stream, so no later replay can overwrite memory that is still
+    to be read; what graphs read and write across replays (weights, the KV
+    pool, slot state, static inputs) lives outside the pool."""
+
+    def __init__(self, device: torch.device, generator: torch.Generator):
+        self.device = device
+        self._generator = generator
+        self._pool = torch.cuda.graph_pool_handle()
+        self._stream = torch.cuda.Stream(device)
+        self.captures = 0
+        self.replays = 0
+        self.pool_bytes = 0   # device memory the captures reserved
+
+    def capture(self, prog: _Program, body, warm: tuple) -> None:
+        """Capture ``body(*prog.inputs)`` into ``prog``, after one eager run
+        of ``body(*warm)`` that pays the first-use costs (the kernel
+        library's attributes, cuBLAS's workspace for the stream) outside
+        the capture. Both run on a side stream, ordered after the work
+        already queued and before the work that follows. The sampling
+        generator is registered, so every replay draws new numbers."""
+        cur = torch.cuda.current_stream(self.device)
+        self._stream.wait_stream(cur)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.device(self.device), torch.cuda.stream(self._stream):
+            graph.register_generator_state(self._generator)
+            body(*warm)
+            before = dict(paged_ops.launches)
+            reserved = torch.cuda.memory_reserved(self.device)
+            graph.capture_begin(pool=self._pool)
+            try:
+                out = body(*prog.inputs)
+            finally:
+                graph.capture_end()
+            self.pool_bytes += torch.cuda.memory_reserved(self.device) \
+                - reserved
+            prog.launches = _take_launches(before)
+        cur.wait_stream(self._stream)
+        prog.graph, prog.out = graph, out
+        self.captures += 1
+
+    def replay(self, prog: _Program) -> torch.Tensor:
+        prog.graph.replay()
+        _add_launches(prog.launches)
+        self.replays += 1
+        return prog.out
+
+
 class LLMEngine:
     def __init__(self, cfg: LLMConfig, params=None, rng_seed: int = 0):
         for name, only in _NOT_PORTED:
@@ -156,6 +264,7 @@ class LLMEngine:
             # build (or load) the kernel library now: a failed build fails
             # the engine's construction, not a request mid-traffic
             _build.load("paged_attention")
+        graphs_on = _cuda_graphs_on(cfg.cuda_graphs, self.device)
 
         if params is None:
             if cfg.checkpoint_path:
@@ -235,6 +344,10 @@ class LLMEngine:
         self._dev_tokens = torch.zeros((b + 1,), dtype=torch.long,
                                        device=dev)
         self._dirty_slots: dict[int, tuple] = {}  # slot -> (seq_len, temp)
+        # decode and verify signatures (_Program), made at first use; with
+        # graphs on, each captured into _graphs' pool
+        self._programs: dict[tuple, _Program] = {}
+        self._graphs = _CudaGraphs(dev, self._gen) if graphs_on else None
 
     # ---- device programs -------------------------------------------------
     def _decode_block(self, idx: torch.Tensor, num_steps: int):
@@ -289,7 +402,8 @@ class LLMEngine:
         t = tokens.shape[1]
         out = kvc.sample_tokens(
             logits.reshape(-1, logits.shape[-1]), self._gen,
-            temps.repeat_interleave(t), self.cfg.top_k).reshape(-1, t)
+            temps[:, None].expand(-1, t).reshape(-1),
+            self.cfg.top_k).reshape(-1, t)
         all_toks = out.T.contiguous()                               # [k+1, W]
         # the scattered lens are k+1 past the truth for every rejected
         # draft; the harvest patches every participating slot with its
@@ -309,7 +423,67 @@ class LLMEngine:
                                  self.cfg.top_k)[0]
 
     def _to_device(self, arr: np.ndarray) -> torch.Tensor:
-        return torch.from_numpy(arr).to(self.device)
+        """A host array on the engine's device. On the card the copy goes
+        through a fresh pinned tensor, so it is asynchronous, as the
+        reference's ``jnp.asarray`` is: after a copy from pageable memory
+        PyTorch synchronises the stream, and the host would wait for every
+        block queued ahead. The caching host allocator hands that pinned
+        block out again only once the copy has run."""
+        src = torch.from_numpy(arr)
+        if self.device.type == "cuda":
+            return src.pin_memory().to(self.device, non_blocking=True)
+        return src
+
+    def _stage(self, dst: torch.Tensor, values: np.ndarray) -> None:
+        """Copy a host array into a static input in place (asynchronous on
+        the card, as in ``_to_device``)."""
+        src = torch.from_numpy(values)
+        if dst.device.type == "cuda":
+            src = src.pin_memory()
+        dst.copy_(src, non_blocking=True)
+
+    def _trash_inputs(self, sig: tuple) -> tuple:
+        """Inputs of a decode or verify signature that select only the
+        trash row (and -1 drafts): a run on them writes only into the
+        trash page."""
+        kind, w, k = sig
+        idx = torch.full((w,), self.cfg.max_batch_size, dtype=torch.long,
+                         device=self.device)
+        if kind == "decode":
+            return (idx,)
+        return idx, torch.full((w, k), -1, dtype=torch.long,
+                               device=self.device)
+
+    def _program(self, sig: tuple, body) -> _Program:
+        """A signature's static inputs, made at its first use (at warmup,
+        or mid-traffic with warmup off) and, with graphs on, its graph,
+        captured then; ``body`` runs the signature on its inputs."""
+        prog = self._programs.get(sig)
+        if prog is None:
+            prog = _Program(self._trash_inputs(sig))
+            if self._graphs is not None:
+                self._graphs.capture(prog, body, self._trash_inputs(sig))
+            self._programs[sig] = prog
+        return prog
+
+    def _run_program(self, sig: tuple, body, *values: np.ndarray):
+        """Dispatch a decode or verify signature on host ``values``: fill
+        its static inputs in place, then replay its graph, or with graphs
+        off run ``body`` on them."""
+        prog = self._program(sig, body)
+        for dst, v in zip(prog.inputs, values):
+            self._stage(dst, v)
+        if self._graphs is None:
+            return body(*prog.inputs)
+        return self._graphs.replay(prog)
+
+    def _warm(self, sig: tuple, body) -> None:
+        """First use of a signature before traffic: with graphs on, its
+        capture (which makes one eager warm run); with graphs off, one
+        eager run on trash-row inputs."""
+        self._program(sig, body)
+        if self._graphs is None:
+            body(*self._trash_inputs(sig))
 
     # ---- public API ------------------------------------------------------
     def start(self):
@@ -324,9 +498,9 @@ class LLMEngine:
     def _warmup_decode_programs(self):
         """Run every (bucket width, block length) decode signature once
         before serving, so first-use costs (kernel library load, cuBLAS
-        heuristics, allocator growth) are paid before traffic. All-trash
-        index vectors make the warmup write only into the trash page."""
-        trash = self.cfg.max_batch_size
+        heuristics, allocator growth, and with graphs on the captures) are
+        paid before traffic. All-trash index vectors make the warmup write
+        only into the trash page."""
         widths = sorted({self._bucket_width(n)
                          for n in range(1, self.cfg.max_batch_size + 1)})
         tiers = {1, max(1, min(self.cfg.pressure_decode_block,
@@ -337,18 +511,15 @@ class LLMEngine:
             tiers.add(min(self.cfg.decode_block,
                           max(1, self.cfg.spec_draft_len)))
         for w in widths:
-            idx = torch.full((w,), trash, dtype=torch.long,
-                             device=self.device)
             for k in sorted(tiers):
                 with self._prof.compile_scope("decode", ("decode", w, k)):
-                    self._decode_block(idx, k)
+                    self._warm(("decode", w, k), functools.partial(
+                        self._decode_block, num_steps=k))
             if self._spec_on:
                 # the verify round per width too, on -1 drafts
                 k = self.cfg.spec_draft_len
-                drafts = torch.full((w, k), -1, dtype=torch.long,
-                                    device=self.device)
                 with self._prof.compile_scope("verify", ("verify", w, k)):
-                    self._verify_round(idx, drafts)
+                    self._warm(("verify", w, k), self._verify_round)
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
@@ -819,12 +990,11 @@ class LLMEngine:
         write token overrides into the device token vector. Shared by the
         decode and verify dispatch paths; loop thread only."""
         trash_row = self.cfg.max_batch_size
-        dev = self.device
         if dirty:
             order = sorted(dirty)
             pad = (trash_row + 1) - len(order)
-            didx = torch.tensor(order + [trash_row] * pad, dtype=torch.long,
-                                device=dev)
+            didx = self._to_device(np.array(order + [trash_row] * pad,
+                                            np.int64))
             ptv = np.zeros((trash_row + 1, self.max_pages_per_seq), np.int32)
             ptv[: len(order)] = self.page_tables[order]
             slv = np.zeros((trash_row + 1,), np.int32)
@@ -844,11 +1014,10 @@ class LLMEngine:
             on_host = [s for s, v in overrides.items()
                        if not isinstance(v, torch.Tensor)]
             pad = (trash_row + 1) - len(overrides)
-            oidx = torch.tensor(on_dev + on_host + [trash_row] * pad,
-                                dtype=torch.long, device=dev)
-            host_vals = torch.tensor(
-                [overrides[s] for s in on_host] + [0] * pad,
-                dtype=torch.long, device=dev)
+            oidx = self._to_device(np.array(
+                on_dev + on_host + [trash_row] * pad, np.int64))
+            host_vals = self._to_device(np.array(
+                [overrides[s] for s in on_host] + [0] * pad, np.int64))
             self._dev_tokens[oidx] = torch.cat(
                 [overrides[s].reshape(1).long() for s in on_dev]
                 + [host_vals])
@@ -893,15 +1062,16 @@ class LLMEngine:
         # bucketed width: pack the active slots, pad with the trash row
         active_slots = [slot for _c, slot, _r in snapshot]
         w = self._bucket_width(len(active_slots))
-        trash = self.cfg.max_batch_size
-        idx = torch.tensor(active_slots + [trash] * (w - len(active_slots)),
-                           dtype=torch.long, device=self.device)
+        idx = np.full((w,), self.cfg.max_batch_size, np.int64)
+        idx[: len(active_slots)] = active_slots
         snapshot = [(col, slot, req)
                     for col, (_c, slot, req) in enumerate(snapshot)]
         with self._prof.compile_scope(
                 "decode", ("decode", w, k),
                 mid_traffic=self.stats["requests"] > 0):
-            all_toks = self._decode_block(idx, k)
+            all_toks = self._run_program(
+                ("decode", w, k),
+                functools.partial(self._decode_block, num_steps=k), idx)
         self._pending.append((_Fetch(all_toks), snapshot, k))
         self.stats["steps"] += k
         self.stats["attn_decode_dispatches"] += 1
@@ -943,9 +1113,8 @@ class LLMEngine:
         self._flush_slot_patches(dirty, overrides)
         spec_slots = [slot for slot, _r, _d, _b in rows]
         w = self._bucket_width(len(spec_slots))
-        trash = self.cfg.max_batch_size
-        idx = torch.tensor(spec_slots + [trash] * (w - len(spec_slots)),
-                           dtype=torch.long, device=self.device)
+        idx = np.full((w,), self.cfg.max_batch_size, np.int64)
+        idx[: len(spec_slots)] = spec_slots
         draft_mat = np.full((w, k), -1, np.int64)
         entry = []  # (col, slot, req, draft, base_len)
         for col, (slot, req, draft, base_len) in enumerate(rows):
@@ -954,7 +1123,8 @@ class LLMEngine:
         with self._prof.compile_scope(
                 "verify", ("verify", w, k),
                 mid_traffic=self.stats["requests"] > 0):
-            all_toks = self._verify_round(idx, self._to_device(draft_mat))
+            all_toks = self._run_program(("verify", w, k), self._verify_round,
+                                         idx, draft_mat)
         self._pending.append((_Fetch(all_toks), entry, ("spec", k)))
         self.stats["steps"] += k + 1
         self.stats["attn_verify_dispatches"] += 1
