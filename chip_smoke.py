@@ -76,6 +76,22 @@ Phases, each of which raises on failure (nothing is caught and carried on):
    backward, against the dequantized plain product at the training shape
    and at an 8-row decode shape; the card is asked which row counts
    ``torch._int_mm`` refuses, and the product must pad exactly those;
+10. the KV tier at full width (run before phase 9): ``LLMServer`` serving
+   llama3_1b bf16 with ``kv_tier_enabled`` and CUDA graphs on answers
+   prompt A (~1,000 tokens, 7 full pages) cold, again while its prefix is
+   resident, then two distinct prompts whose chains evict and spill A's
+   (``prefix_cache_max_pages`` 8), then A once more, which restores its 7
+   pages and chunk-prefills the suffix from the restored frontier. The
+   restored pool pages must equal A's cached pages bit for bit (lossless),
+   its greedy tokens the resident run's, and its launches (counted from
+   engine start) the plan of its stats. The same with no codec (raw
+   pages, the same checks); one of A's pages encoded with int8 must be
+   stored lossless (int8 quantizes numpy floating types only, as the
+   reference's codec does); llama_tiny fp32 tier runs through the
+   kernel against the gather path (tokens identical, cold and restored)
+   and with int8 (error within half the group's scale / 127). Prints the
+   spill and restore times per page, the codec's, TTFT cold, resident and
+   restored, the codec ratio and the tier's bytes;
 9. phase 4b's bf16 wave once more with spec on and off, each with CUDA
    graphs on and off, each under the profiler: device busy share,
    launches, host calls (``cudaGraphLaunch`` must be called with graphs
@@ -83,7 +99,8 @@ Phases, each of which raises on failure (nothing is caught and carried on):
    profiles share nothing with the kernel timings).
 
 Prints numbers on earlier lines, then a ``{"kernels": [...]}`` line (each
-row names the CUDA kernel it timed under ``kernel``), then the card's name
+row names the CUDA kernel it timed under ``kernel``; ``tier_launches`` is
+its count in phase 10's lossless tier runs), then the card's name
 and power limit, and as its last line
 ``{"ok": true, "device": {...}}``. Without a CUDA device it exits non-zero
 and prints no result.
@@ -1647,6 +1664,352 @@ def phase_int8(card: str):
         del x, w, dout, xl, wl, out, want, want_dx, want_dw, xd, wd
 
 
+# ---------------------------------------------------------------------------
+# phase 10: the KV tier at full width
+# ---------------------------------------------------------------------------
+
+def _wait_for(pred, timeout: float = 120.0) -> bool:
+    deadline = time.monotonic() + timeout
+    while not pred():
+        if time.monotonic() > deadline:
+            return False
+        time.sleep(0.01)
+    return True
+
+
+def _chain(eng, tokens) -> list:
+    """(chain digest, pool page) of each of ``tokens``' full pages, the page
+    None where the prefix index does not hold it (read without taking a
+    reference)."""
+    from ray_torch.serve.llm import kv_cache as kvc
+
+    ps, digest, out = eng.cfg.page_size, b"", []
+    for i in range((len(tokens) - 1) // ps):
+        digest = kvc._chain_digest(digest, tokens[i * ps:(i + 1) * ps])
+        out.append((digest, eng.allocator._index.get(digest)))
+    return out
+
+
+def _pool_pages(eng, pages) -> tuple:
+    """A device copy of K and V of ``pages``."""
+    idx = torch.tensor(pages, device=eng.kv["k"].device)
+    return tuple(eng.kv[n].index_select(2, idx).clone() for n in ("k", "v"))
+
+
+def _bits(t):
+    return t.view(torch.int16) if t.element_size() == 2 else t.view(torch.int32)
+
+
+def tier_arm(card: str, params, codec: str):
+    """One engine with the tier on (CUDA graphs on) serves prompt A (~1000
+    tokens, 7 full pages) cold and again while its prefix is resident; two
+    distinct prompts then evict and spill A's chain; A returns and restores
+    it. Returns what the arm measured."""
+    from ray_torch.ops import paged_attention as pa
+    from ray_torch.serve.llm import LLMServer
+
+    max_tokens = 32
+    cfg = serve_config(max_tokens=max_tokens, kv_tier_enabled=True,
+                       kv_tier_codec=codec, prefix_cache_max_pages=8)
+    words = ("alpha bravo charlie delta echo foxtrot golf hotel india "
+             "juliet kilo lima mike november oscar papa quebec romeo ")
+    prompts = {name: (f"{name}: " + words * 10)[:999]     # + BOS = 1000
+               for name in ("A", "B", "C")}
+    srv = LLMServer(cfg, params=params, rng_seed=0)
+    eng = srv.engine
+    toks_a = eng.tokenizer.encode(prompts["A"])
+    captured = eng._graphs.captures
+    runs = {}
+
+    def serve(name, prompt):
+        before = eng.engine_stats()
+        rid = eng.submit(prompt, max_tokens=max_tokens, temperature=0.0)
+        req = eng._requests[rid]
+        out = eng.result(rid, timeout=300.0)
+        if out["error"] is not None or len(out["tokens"]) != max_tokens:
+            raise AssertionError(f"tier {codec} {name}: {out['error']}, "
+                                 f"{len(out['tokens'])} tokens")
+        after = eng.engine_stats()
+        runs[name] = {"tokens": out["tokens"], "ttft": out["ttft_s"],
+                      "req": req, "delta": {k: after[k] - before[k]
+                                            for k in before
+                                            if isinstance(after[k], int)}}
+        return runs[name]
+
+    try:
+        for name in pa.launches:            # count this phase's traffic
+            pa.launches[name] = 0
+        serve("cold", prompts["A"])
+        pages = [p for _, p in _chain(eng, toks_a)]
+        if len(pages) != 7 or None in pages:
+            raise AssertionError(f"A's chain is not cached: {pages}")
+        snapshot = _pool_pages(eng, pages)
+        serve("resident", prompts["A"])
+        if runs["resident"]["delta"]["prefix_hit_tokens"] != 7 * 128:
+            raise AssertionError(f"resident run: {runs['resident']['delta']}")
+        serve("B", prompts["B"])
+        serve("C", prompts["C"])
+        chain = _chain(eng, toks_a)
+        if not _wait_for(lambda: all(
+                p is None and d.hex() in eng._kv_tier._by_digest
+                for d, p in chain)):
+            raise AssertionError(f"A's chain did not spill: "
+                                 f"{eng.engine_stats()['spilled_pages']}")
+        before = dict(pa.launches)
+        restored = serve("restored", prompts["A"])
+        launches = {k: pa.launches[k] - before[k] for k in pa.launches}
+        total = dict(pa.launches)
+        stats = eng.engine_stats()
+        after = [p for _, p in _chain(eng, toks_a)]
+        got = _pool_pages(eng, after)
+        graphs = (eng._graphs.captures, eng._graphs.replays)
+    finally:
+        srv.shutdown()
+    req, delta = restored["req"], restored["delta"]
+    if not (delta["restored_pages"] >= 7 and req.restore_pages == 7
+            and delta["tier_hit_tokens"] == 7 * 128
+            and delta["attn_chunk_dispatches"] >= 1
+            and delta["prefix_hit_tokens"] == 0):
+        raise AssertionError(f"tier {codec}: the restore did not bring A's "
+                             f"7 pages back: {delta}")
+    if graphs[0] != captured or not graphs[1] > 0:
+        raise AssertionError(f"graphs: {graphs} against {captured} captured")
+    want = planned_launches(cfg, delta)
+    want_all = planned_launches(cfg, stats)
+    if launches != want or total != want_all \
+            or not want["paged_chunk_hopper"] \
+            or not want["paged_decode_hopper"] \
+            or want["paged_attention_kernel"]:
+        raise AssertionError(f"tier {codec}: restored run launched "
+                             f"{launches} (planned {want}); the phase "
+                             f"{total} (planned {want_all})")
+    # restored pages against the spilled ones, bit for bit
+    same = all(torch.equal(_bits(g), _bits(w)) for g, w in zip(got, snapshot))
+    return {"cfg": cfg, "runs": runs, "launches": launches, "total": total,
+            "want": want, "stats": stats, "same": same, "eng": eng,
+            "pages": after, "snapshot": snapshot}
+
+
+def tier_costs(eng, pages, snapshot, reps: int = 5) -> dict:
+    """Per-page times of the tier's device work on the engine's own pool
+    and helpers: the spill (gather + device -> host into pinned memory,
+    until its event) and the restore (host -> device through pinned
+    memory + the in-place scatter, until done), medians of ``reps``."""
+    from ray_torch.serve.llm import engine as engine_mod
+
+    n = len(pages)
+    spill, restore = [], []
+    host = None
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        idx = eng._to_device(np.array(pages, np.int64))
+        fetches = [engine_mod._Fetch(eng.kv[name].index_select(2, idx)
+                                     .view(torch.int16))
+                   for name in ("k", "v")]
+        host = [f.wait() for f in fetches]
+        spill.append((time.perf_counter() - t0) * 1e3 / n)
+    k_np, v_np = (np.array(h) for h in host)
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eng._scatter_pages(pages, k_np, v_np)   # the same bytes back
+        torch.cuda.synchronize()
+        restore.append((time.perf_counter() - t0) * 1e3 / n)
+    got = _pool_pages(eng, pages)
+    if not all(torch.equal(_bits(g), _bits(w))
+               for g, w in zip(got, snapshot)):
+        raise AssertionError("a host round trip of the pool pages changed "
+                             "them")
+    return {"spill_ms": statistics.median(spill),
+            "restore_ms": statistics.median(restore)}
+
+
+def _spy_tier(eng):
+    """Record each spilled page's pool content at its first spill (the
+    allocator hook runs before any write that reuses the page) and the pool
+    pages each restore scatter writes. Installed after ``start()``, so the
+    warmup's trash-page write is not recorded."""
+    spilled, restored = {}, []
+    hook, scatter = eng._spill_capture, eng._scatter_pages
+
+    def capture(evicted):
+        for page, _digest, pos in evicted:
+            if pos is not None and pos not in spilled:
+                spilled[pos] = _pool_pages(eng, [page])
+        hook(evicted)
+
+    def write(pages, k_np, v_np):
+        restored.extend(pages)
+        scatter(pages, k_np, v_np)
+
+    eng.allocator.spill_hook = capture
+    eng._scatter_pages = write
+    return spilled, restored
+
+
+def tier_tiny(card: str):
+    """llama_tiny fp32 with the tier on through the kernel (CUDA graphs on):
+    a 5-full-page prompt cold, then restored once its 3-page chain head has
+    spilled (at most 2 cached pages). Its tokens must equal the gather
+    path's cold run, cold and restored, and its launches on
+    ``paged_attention_kernel`` the plan of its stats. Then the int8 codec,
+    which quantizes fp32 pages: each restored page's largest error against
+    its (layer, kv head) group's scale / 127, of which rounding allows half.
+    Returns {run: (cold tokens, restored tokens, stats, launches, worst
+    error / (scale / 127), restored pages bit-identical)}."""
+    from ray_torch.models import llama
+    from ray_torch.ops import paged_attention as pa
+    from ray_torch.serve.llm import LLMConfig, LLMEngine
+
+    mcfg = llama.llama_tiny(vocab_size=512)
+    params = llama.init_params(
+        mcfg, torch.Generator(device="cuda").manual_seed(7), "cuda")
+    long = "the quick brown fox jumps over the lazy dog " * 2   # 5 pages
+    out = {}
+    for run, kernel, tier, codec in (("gather", "gather", False, "lossless"),
+                                     ("tier", "cuda", True, "lossless"),
+                                     ("tier int8", "cuda", True, "int8")):
+        cfg = LLMConfig(model_config=mcfg, device="cuda",
+                        attention_kernel=kernel, max_batch_size=4,
+                        page_size=16, num_pages=64, max_prompt_len=96,
+                        max_seq_len=160, max_tokens=32,
+                        prefix_cache_max_pages=2, kv_tier_enabled=tier,
+                        kv_tier_codec=codec)
+        eng = LLMEngine(cfg, params=params)
+        eng.start()
+        spilled, restored = _spy_tier(eng) if tier else ({}, [])
+        try:
+            for name in pa.launches:
+                pa.launches[name] = 0
+            cold = eng.generate(long, temperature=0.0)
+            if tier and not _wait_for(
+                    lambda: eng.engine_stats()["spilled_pages"] >= 3):
+                raise AssertionError(f"{run}: nothing spilled")
+            hot = eng.generate(long, temperature=0.0)
+            stats = eng.engine_stats()
+            launches = dict(pa.launches)
+            got = [_pool_pages(eng, [p]) for p in restored]
+        finally:
+            eng.shutdown()
+        for r in (cold, hot):
+            if r["error"] is not None:
+                raise AssertionError(f"{run}: {r['error']}")
+        worst, same = 0.0, True
+        for pos, pair in enumerate(got):
+            for g, w in zip(pair, spilled[pos]):
+                same = same and torch.equal(_bits(g), _bits(w))
+                scale = w.abs().amax(dim=(2, 3, 4), keepdim=True) / 127.0
+                worst = max(worst, float(((g - w).abs() / scale).max()))
+        if tier:
+            want = planned_launches(cfg, stats)
+            if stats["restored_pages"] != 3 or len(got) != 3 \
+                    or launches != want \
+                    or not want["paged_attention_kernel"]:
+                raise AssertionError(f"{run}: restored "
+                                     f"{stats['restored_pages']} pages, "
+                                     f"launches {launches}, planned {want}")
+        out[run] = (cold["tokens"], hot["tokens"], stats, launches, worst,
+                    same)
+    return out
+
+
+def phase_tier(card: str):
+    """Phase 10: the KV tier at full width (llama3_1b bf16, CUDA graphs on,
+    phase 4's weights from seed 0) with the lossless codec and then raw
+    pages, and llama_tiny fp32 against gather, with lossless and int8.
+    Returns the launches of the lossless tier runs, by kernel (the bf16
+    arm's and the fp32 one's)."""
+    from ray_torch.models import llama
+    from ray_torch.serve.llm import kv_cache as kvc
+    from ray_torch.serve.llm import kv_codec
+
+    cfg = serve_config()
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    params = llama.init_params(cfg.model_config, gen, "cuda")
+    arms = {codec: tier_arm(card, params, codec)
+            for codec in ("lossless", "none")}
+    a = arms["lossless"]
+    runs, st = a["runs"], a["stats"]
+    costs = tier_costs(a["eng"], a["pages"], a["snapshot"])
+    log(f"  llama3_1b bf16, tier lossless: A cold, resident, then after B "
+        f"and C spilled its chain, restored: restored pages "
+        f"{runs['restored']['req'].restore_pages}, pool pages bit-identical "
+        f"to the spilled ones {a['same']}; spilled_pages "
+        f"{st['spilled_pages']}, restored_pages {st['restored_pages']}, "
+        f"tier_hit_tokens {st['tier_hit_tokens']} [{card}]")
+    log(f"  restored run launches {a['launches']} (planned {a['want']}); "
+        f"phase {a['total']} [{card}]")
+    same_tokens = runs["restored"]["tokens"] == runs["resident"]["tokens"]
+    log(f"  greedy tokens: restored == resident {same_tokens}; cold == "
+        f"resident {runs['cold']['tokens'] == runs['resident']['tokens']} "
+        f"(cold chunk-prefills from 0, the others from 896) [{card}]")
+    req = runs["restored"]["req"]
+    log(f"  TTFT: A cold {1e3 * runs['cold']['ttft']:.1f} ms, resident hit "
+        f"{1e3 * runs['resident']['ttft']:.1f} ms, restored "
+        f"{1e3 * runs['restored']['ttft']:.1f} ms (B {1e3 * runs['B']['ttft']:.1f}"
+        f", C {1e3 * runs['C']['ttft']:.1f} ms; C arrives as the 6 pages "
+        f"B's end evicted are encoded on the engine loop); restore_ms "
+        f"{req.restore_ms:.1f} (loop-blocked {req.restore_blocked_ms:.1f}, "
+        f"codec decode {req.restore_decode_ms:.1f}, {req.restore_bytes} "
+        f"bytes) [{card}]")
+    page_mib = kvc.page_raw_nbytes(a["cfg"].model_config,
+                                   a["cfg"].page_size) / 2**20
+    log(f"  per page ({page_mib:g} MiB of K+V): spill device->host "
+        f"{costs['spill_ms']:.3f} ms, restore host->device + scatter "
+        f"{costs['restore_ms']:.3f} ms; encode p50 "
+        f"{st['tier_encode_ms_p50']} ms, decode p50 "
+        f"{st['tier_decode_ms_p50']} ms on the host; tier_codec_ratio "
+        f"{st['tier_codec_ratio']} (random weights: less compressible KV "
+        f"than trained ones), tier_bytes_shm {st['tier_bytes_shm']} "
+        f"[{card}]")
+    if not (a["same"] and same_tokens):
+        raise AssertionError("lossless restore: pages or tokens differ")
+    # int8 quantizes numpy floating types only, as the reference's codec
+    # does, so a bf16 pool's pages are stored lossless: one of A's pages
+    words = [w[:, :, :1].view(torch.int16).cpu().numpy().view(np.uint16)
+             for w in a["snapshot"]]
+    ek, ev = kv_codec.encode_pages(*words, "int8", dtype="bfloat16")[0]
+    int8_lossless = (ek["mode"] == ev["mode"] == "lossless"
+                     and all(np.array_equal(kv_codec.decode_page(e)
+                                            .view(np.uint16), w)
+                             for e, w in zip((ek, ev), words)))
+    log(f"  tier int8 on the bf16 pool: a page is stored "
+        f"{ek['mode']}/{ev['mode']}, decoded bit-identical {int8_lossless} "
+        f"(the fp32 llama_tiny arm below carries the quantization bound) "
+        f"[{card}]")
+    if not int8_lossless:
+        raise AssertionError("int8 on a bf16 pool: not stored lossless")
+    c = arms["none"]
+    cr, creq = c["runs"], c["runs"]["restored"]["req"]
+    same_none = cr["restored"]["tokens"] == cr["resident"]["tokens"]
+    log(f"  tier none (raw pages, no codec): TTFT A cold "
+        f"{1e3 * cr['cold']['ttft']:.1f} ms, resident hit "
+        f"{1e3 * cr['resident']['ttft']:.1f} ms, restored "
+        f"{1e3 * cr['restored']['ttft']:.1f} ms; restore_ms "
+        f"{creq.restore_ms:.1f} (loop-blocked {creq.restore_blocked_ms:.1f}"
+        f"); pages bit-identical {c['same']}, restored tokens == resident "
+        f"{same_none} [{card}]")
+    if not (c["same"] and same_none):
+        raise AssertionError("raw restore: pages or tokens differ")
+    tiny = tier_tiny(card)
+    g, t, q = tiny["gather"], tiny["tier"], tiny["tier int8"]
+    log(f"  llama_tiny fp32, tier lossless (kernel, graphs on): cold == "
+        f"gather {t[0] == g[0]}, restored == gather {t[1] == g[0]} "
+        f"({len(g[0])} tokens); restored pages bit-identical {t[5]}; "
+        f"launches {t[3]} (planned from its stats) [{card}]")
+    log(f"  llama_tiny fp32, tier int8: restored pages' worst |err| = "
+        f"{q[4]:.3f} x scale/127 (rounding allows 0.5); restored == gather "
+        f"{q[1] == g[0]} (reported) [{card}]")
+    if not (t[0] == g[0] == t[1] and t[5]):
+        raise AssertionError("fp32 tier: tokens differ from gather, or the "
+                             "restored pages from the spilled ones")
+    if not 0.0 < q[4] <= 0.5 + 1e-3:
+        raise AssertionError(f"fp32 int8 arm: error {q[4]} x scale/127")
+    return {k: n + t[3][k] for k, n in a["total"].items()}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
@@ -1735,6 +2098,14 @@ def main() -> int:
     t0 = time.perf_counter()
     phase_int8(card)
     log(f"  phase 8: {time.perf_counter() - t0:.1f} s")
+
+    log("[10] the KV tier at full width: spill, restore, suffix prefill")
+    t0 = time.perf_counter()
+    tier_launches = phase_tier(card)
+    for k in kernels:         # the same kernels' counts on the tier's path
+        k["tier_launches"] = tier_launches[k["kernel"]]
+    log(f"  phase 10: {time.perf_counter() - t0:.1f} s")
+    torch.cuda.empty_cache()
 
     log("[9] where a speculative serving wave's time goes")
     t0 = time.perf_counter()

@@ -5,18 +5,17 @@ two fields of the port's own (``device``, ``cuda_graphs``), except
 ``attention_kernel``: where the reference says ``"pallas"`` for its kernel,
 the port says ``"cuda"`` (and raises on ``"pallas"``).
 
-Of the fields of features this slice of the port does not carry yet, four
+Of the fields of features this slice of the port does not carry yet, three
 make the engine raise unless they keep their defaults (``_NOT_PORTED`` in
-``engine.py``): ``kv_tier_enabled``, ``tp_degree``,
-``disagg_prompt_threshold`` and ``disagg_prefill_deployment``. The SLO and
-routing fields (``slo_ttft_p99_ms``, ``slo_e2e_p99_ms``,
-``prefix_summary_max_pages``) are read by the reference's serve layer
-(``ray_tpu/serve/proxy.py:263-311``,
+``engine.py``): ``tp_degree``, ``disagg_prompt_threshold`` and
+``disagg_prefill_deployment``. The SLO and routing fields
+(``slo_ttft_p99_ms``, ``slo_e2e_p99_ms``, ``prefix_summary_max_pages``) are
+read by the reference's serve layer (``ray_tpu/serve/proxy.py:263-311``,
 ``ray_tpu/serve/llm/llm_server.py:477-479``), which waits for the port's
 serve layer: the engine accepts them and nothing reads them yet. Nothing
-reads the other fields of unported features either (``kv_tier_*`` and
-``warm_start_*``, which do nothing without the KV tier in the reference
-too, and ``failover_*``).
+reads the other fields of unported features either: ``warm_start_*`` (the
+tier's warm start waits for the serve layer) and ``failover_*``. The
+``kv_tier_*`` fields configure the KV tier (``kv_tier.py``).
 """
 
 from __future__ import annotations
@@ -103,7 +102,19 @@ class LLMConfig:
     spec_draft_len: int = 4
     spec_ngram_max: int = 3
 
-    # Tiered KV cache — not ported yet: must stay False
+    # Tiered KV cache (serve/llm/kv_tier.py): prefix pages evicted from the
+    # pool spill to host memory (an in-process shm tier backed by a bounded
+    # local disk tier) and a returning prompt restores them, so only its
+    # suffix is prefilled. Greedy outputs stay identical to a cold prefill
+    # under the lossless codec; every tier failure degrades to a plain
+    # cache miss. Requires prefix_cache_enabled. Default off.
+    # Measured cost (H100, llama3_1b, pages of 128 tokens): a restore
+    # through the default lossless codec costs MORE than the prefill it
+    # replaces (TTFT 436-555 ms restored against 64-155 ms cold), and each
+    # spill's encode runs on the engine loop and blocks every live request
+    # (1.3-1.5 s); raw pages (codec "none") only tie a cold prefill.
+    # Source: chip_smoke.py phase 10, recorded in PERF.md section 6;
+    # moving the codec off the loop is ROADMAP Queue 1 item 1d.
     kv_tier_enabled: bool = False
     kv_tier_max_bytes: int = 256 * 1024 * 1024
     kv_tier_disk_dir: Optional[str] = None
@@ -114,7 +125,7 @@ class LLMConfig:
     kv_tier_chunk_timeout_s: float = 2.0
     kv_tier_stream_window_bytes: int = 8 * 1024 * 1024
 
-    # Cache-warm scale-up — a no-op without the KV tier
+    # Cache-warm scale-up (waits for the serve layer; nothing reads these)
     warm_start_enabled: bool = True
     warm_start_max_bytes: int = 64 * 1024 * 1024
     warm_start_budget_s: float = 5.0

@@ -38,12 +38,23 @@ How the reference's JAX machinery maps onto PyTorch:
 - speculative decoding (``spec_decode_enabled``) verifies a greedy slot's
   n-gram draft in one verify round (``_verify_round``: k+1 positions per
   slot through ``kv_cache.paged_verify_step``); the host bookkeeping
-  around it is the reference's.
+  around it is the reference's;
+- the KV tier (``kv_tier_enabled``, kv_tier.py): prefix pages the
+  allocator evicts are gathered on the device inside its spill hook
+  (``_spill_capture``, stream-ordered before any write that reuses them)
+  and copied into pinned host memory behind an event; the loop hands the
+  copies that have landed to the store (``_kv_tier_flush``), never
+  waiting on the device. A returning prompt's spilled chain streams back
+  (``_restore_steps``) and is scattered IN PLACE into its pool pages
+  (``index_copy_``), where the reference rebinds a donated pool: the
+  captured graphs read the pool by address. The suffix is then
+  chunk-prefilled from the restored frontier.
 
-This slice leaves out, for later slices: the KV tier (spill, restore, warm
-start), disaggregation, failover continuations, tensor parallelism, and
-the flight-recorder / tracing / attribution / deadline hooks. A config
-that switches one of them on raises.
+This slice leaves out, for later slices: the tier's warm start, prefetch
+hints and eager spill of live chains, disaggregation, failover
+continuations, tensor parallelism, and the flight-recorder / tracing /
+attribution / deadline hooks. A config that switches one of them on
+raises.
 
 Threading model: one loop thread drives the device. ``submit()`` /
 ``drain()`` / ``result()`` / ``cancel()`` are thread-safe.
@@ -52,6 +63,7 @@ Threading model: one loop thread drives the device. ``submit()`` /
 from __future__ import annotations
 
 import functools
+import gc
 import logging
 import threading
 import time
@@ -68,6 +80,7 @@ from ray_torch.observability import profiling as profiling_mod
 from ray_torch.ops import _build
 from ray_torch.ops import paged_attention as paged_ops
 from ray_torch.serve.llm import kv_cache as kvc
+from ray_torch.serve.llm import kv_tier as kvt
 from ray_torch.serve.llm import spec_decode
 from ray_torch.serve.llm.config import LLMConfig
 from ray_torch.serve.llm.tokenizer import get_tokenizer
@@ -76,8 +89,7 @@ logger = logging.getLogger(__name__)
 
 # LLMConfig switches of features this slice does not carry: (field, the
 # only accepted value)
-_NOT_PORTED = (("kv_tier_enabled", False), ("tp_degree", 1),
-               ("disagg_prompt_threshold", 0),
+_NOT_PORTED = (("tp_degree", 1), ("disagg_prompt_threshold", 0),
                ("disagg_prefill_deployment", None))
 
 
@@ -98,9 +110,24 @@ class _Request:
     # prompt tokens served from the prefix cache (shared pages; prefill_pos
     # starts here so only the suffix is computed)
     cached_tokens: int = 0
-    # cancelled while mid chunked prefill: the loop frees slot+pages
-    # promptly via _abort_prefilling instead of finishing the prompt pass
+    # cancelled while mid chunked prefill or mid restore: the loop frees
+    # slot+pages promptly via _abort_prefilling instead of finishing the
+    # prompt pass
     prefill_cancelled: bool = False
+    # KV-tier restore accounting: decoded payload size, and the restore
+    # wall time (stream open -> finalize; the stream overlaps other
+    # requests' work, so wall != loop time — see restore_blocked_ms)
+    restore_bytes: int = 0
+    restore_ms: float = 0.0
+    # the live ChainStream while this request sits in _restoring, plus the
+    # codec decode time and the loop time spent on this stream
+    # (take/decode/inject)
+    restore_stream: Any = None
+    restore_started: float = 0.0        # perf_counter at stream open
+    restore_page0: int = 0              # first chain slot the stream fills
+    restore_pages: int = 0              # pages injected so far
+    restore_decode_ms: float = 0.0
+    restore_blocked_ms: float = 0.0
     # speculative decoding: per-request n-gram proposer (spec_decode.py),
     # created lazily on the first draft attempt; spec_inflight marks a slot
     # with an unharvested verify round so the decode path never dispatches
@@ -226,11 +253,20 @@ class _CudaGraphs:
             body(*warm)
             before = dict(paged_ops.launches)
             reserved = torch.cuda.memory_reserved(self.device)
-            graph.capture_begin(pool=self._pool)
+            # no garbage collection while the stream captures: collecting
+            # another engine's graphs resets them, which a capture in
+            # progress does not permit (it invalidates the capture)
+            gc_on = gc.isenabled()
+            gc.disable()
             try:
-                out = body(*prog.inputs)
+                graph.capture_begin(pool=self._pool)
+                try:
+                    out = body(*prog.inputs)
+                finally:
+                    graph.capture_end()
             finally:
-                graph.capture_end()
+                if gc_on:
+                    gc.enable()
             self.pool_bytes += torch.cuda.memory_reserved(self.device) \
                 - reserved
             prog.launches = _take_launches(before)
@@ -302,6 +338,10 @@ class LLMEngine:
         # prefilled; the loop dispatches one chunk per request per
         # iteration, interleaved with decode blocks
         self._prefilling: list[_Request] = []
+        # streaming tier restore: admitted (slot+pages held), restore
+        # stream open — the loop injects landed chunks (_restore_steps) and
+        # routes each request on to its suffix prefill when its stream ends
+        self._restoring: list[_Request] = []
         self._requests: dict[str, _Request] = {}
         self._wake = threading.Event()
         self._stop = threading.Event()
@@ -312,6 +352,8 @@ class LLMEngine:
                       "requests": 0, "compile_s": 0.0,
                       "prefix_hits": 0, "prefix_misses": 0,
                       "prefix_hit_tokens": 0,
+                      "spilled_pages": 0, "restored_pages": 0,
+                      "tier_hit_tokens": 0, "restore_partial": 0,
                       "spec_rounds": 0, "spec_drafted_tokens": 0,
                       "spec_accepted_tokens": 0,
                       # decode blocks / verify rounds / prefill chunks
@@ -320,6 +362,27 @@ class LLMEngine:
                       "attn_decode_dispatches": 0,
                       "attn_verify_dispatches": 0,
                       "attn_chunk_dispatches": 0}
+        # Tiered KV cache (kv_tier.py): evicted cached page chains spill
+        # host-side instead of dying, and _admit extends its longest-match
+        # search past the local index into the tier. The allocator hook
+        # only captures evictions and dispatches one device gather per
+        # batch (stream-ordered before any reuse of the pages) with its
+        # device->host copy; the store put happens later on the loop, once
+        # the copy has landed (_kv_tier_flush).
+        self._kv_tier_on = bool(cfg.kv_tier_enabled) and self._prefix_cache_on
+        self._kv_tier = None
+        self._tier_pending: list = []  # [(_Fetch k, _Fetch v, [(page, dig, pos)])]
+        if self._kv_tier_on:
+            kv_dtype = self.kv["k"].dtype
+            self._kv_tier = kvt.KVTierStore(
+                max_bytes=cfg.kv_tier_max_bytes,
+                disk_dir=cfg.kv_tier_disk_dir,
+                disk_max_bytes=cfg.kv_tier_disk_max_bytes,
+                ttl_s=cfg.kv_tier_ttl_s,
+                page_size=cfg.page_size,
+                codec=cfg.kv_tier_codec,
+                dtype="bfloat16" if kv_dtype == torch.bfloat16 else None)
+            self.allocator.spill_hook = self._spill_capture
         # Speculative decoding (spec_decode.py + _verify_round): host-side
         # n-gram drafts verified k at a time in one dispatch. Greedy-only
         # guarantee: non-greedy slots are never drafted and ride the normal
@@ -520,6 +583,15 @@ class LLMEngine:
                 k = self.cfg.spec_draft_len
                 with self._prof.compile_scope("verify", ("verify", w, k)):
                     self._warm(("verify", w, k), self._verify_round)
+        if self._kv_tier_on:
+            # the tier-restore scatter, as the reference warms its one
+            # fixed-shape inject program (a zero page into the trash page)
+            mp = self.max_pages_per_seq
+            shape = self.kv["k"].shape
+            zero = np.zeros(shape[:2] + (1,) + shape[3:], self._host_dtype())
+            with self._prof.compile_scope("kv_tier_inject",
+                                          ("kv_tier_inject", mp)):
+                self._scatter_pages([0], zero, zero)
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
@@ -540,6 +612,24 @@ class LLMEngine:
             return
         while self._pending:
             self._harvest_one()
+        # restore streams have their own worker threads; cut them before
+        # the tier closes underneath them
+        with self._lock:
+            restoring = list(self._restoring)
+        for req in restoring:
+            if req.restore_stream is not None:
+                req.restore_stream.abort()
+                req.restore_stream = None
+        if self._kv_tier is not None:
+            # hand the captured spills to the store, then drop its blobs
+            # and end its threads
+            try:
+                self._kv_tier_flush(wait=True)
+            except Exception:  # noqa: BLE001 - spill is best-effort
+                logger.warning("kv-tier: spills lost at shutdown",
+                               exc_info=True)
+                self._tier_pending.clear()
+            self._kv_tier.close()
 
     def submit(self, prompt: str | list[int], *,
                max_tokens: Optional[int] = None,
@@ -588,10 +678,11 @@ class LLMEngine:
                 req.finished_at = time.monotonic()
                 req.done_event.set()
                 return
-            if req in self._prefilling:
-                # mid chunked prefill: flag it and let the LOOP free the
-                # slot/pages (_abort_prefilling) — the loop may be
-                # building a chunk dispatch from req.pages right now
+            if req in self._prefilling or req in self._restoring:
+                # mid chunked prefill (or mid tier-restore stream): flag it
+                # and let the LOOP free the slot/pages (_abort_prefilling)
+                # — the loop may be building a chunk dispatch from
+                # req.pages, or injecting restored pages, right now
                 req.prefill_cancelled = True
                 req.abandoned = True
                 self._requests[request_id] = req  # loop reaps on abort
@@ -672,10 +763,11 @@ class LLMEngine:
             active = sum(1 for r in self.slot_req if r is not None)
             waiting = len(self._waiting)
             prefilling = len(self._prefilling)
+            restoring = len(self._restoring)
         free = self.allocator.available()
         out = {**self.stats, "active_slots": active,
-               "waiting": waiting + prefilling,
-               "prefilling": prefilling,
+               "waiting": waiting + prefilling + restoring,
+               "prefilling": prefilling, "restoring": restoring,
                "free_pages": free,
                "decode_block_effective": self._last_block,
                "pending_pipeline_depth": len(self._pending)}
@@ -707,6 +799,21 @@ class LLMEngine:
                         "prefix_evictions": cs["evicted"],
                         "prefix_hit_pages": cs["hit_pages"],
                         "prefix_inserted_pages": cs["inserted"]})
+        # tier gauges, always emitted (0 when the tier is off) for a stable
+        # key set; the spill/restore counters live in self.stats
+        ts = self._kv_tier.stats() if self._kv_tier is not None else {}
+        out["tier_bytes_shm"] = ts.get("shm_bytes", 0)
+        out["tier_bytes_disk"] = ts.get("disk_bytes", 0)
+        out["tier_bytes_shm_raw"] = ts.get("shm_bytes_raw", 0)
+        out["tier_bytes_disk_raw"] = ts.get("disk_bytes_raw", 0)
+        out["tier_codec_ratio"] = ts.get("codec_ratio", 0.0)
+        out["tier_encode_ms_p50"] = ts.get("encode_ms_p50", 0.0)
+        out["tier_decode_ms_p50"] = ts.get("decode_ms_p50", 0.0)
+        # the reference's prefetch-hint gauges: hints come with the serve
+        # layer, so they stay 0 here
+        out["tier_prefetch_hints"] = 0
+        out["tier_prefetch_pages"] = 0
+        out["tier_prefetch_hit_pages"] = 0
         return out
 
     # ---- engine loop -----------------------------------------------------
@@ -733,10 +840,21 @@ class LLMEngine:
                     prof.record("admit", time.perf_counter() - t0)
             else:
                 self._admit()
+            # streaming tier restores first: a chunk that landed since the
+            # last pass injects before this pass's prefill chunks dispatch,
+            # and a stream that just finished routes its request into
+            # _prefilling in time for THIS pass
+            restored = self._restore_steps() if self._kv_tier_on else 0
             chunks = self._prefill_chunks()
             # chunk dispatches count as progress: an otherwise-idle engine
-            # mid-chunked-prefill must not sleep between chunks
-            dispatched = self._step() or chunks > 0
+            # mid-chunked-prefill must not sleep between chunks. Restore
+            # progress counts too; a stream WAITING on fetches does not —
+            # the idle wait below parks on _wake, which the stream's
+            # on_ready sets the moment new pages land
+            dispatched = self._step() or chunks > 0 or restored > 0
+            if self._kv_tier_on:
+                # spill gathers whose device->host copies have landed
+                self._kv_tier_flush()
             # Eager harvest: pop every entry whose tokens already landed
             # in host memory; the blocking PIPELINE_DEPTH trim in
             # _decode_step still bounds the queue when results are slow
@@ -771,7 +889,7 @@ class LLMEngine:
         reclamation isn't a whole block late and prefill chunks interleave
         tightly. Lock held."""
         return (bool(self._waiting) and bool(self.free_slots)) \
-            or bool(self._prefilling)
+            or bool(self._prefilling) or bool(self._restoring)
 
     def _bucket_width(self, n: int) -> int:
         """Packed decode width: smallest power-of-two >= n (floor 4),
@@ -820,6 +938,16 @@ class LLMEngine:
                     self.stats["prefix_hit_tokens"] += req.cached_tokens
             self._prof.record("queue_wait",
                               req.admitted_at - req.submitted_at)
+            if self._kv_tier_on and self._kv_tier_begin_restore(
+                    req, len(matched)):
+                # pipelined streaming restore: the stream's worker plans
+                # and fetches chunk by chunk off this thread; the loop's
+                # _restore_steps injects chunks as they land and routes the
+                # request on to its suffix prefill when the stream ends
+                with self._lock:
+                    self._restoring.append(req)
+                admitted += 1
+                continue
             self._route_admitted(req)
             admitted += 1
 
@@ -838,6 +966,201 @@ class LLMEngine:
                 self._prefilling.append(req)
         else:
             self._prefill(req)
+
+    # ---- tiered KV cache (kv_tier.py) ---------------------------------
+    # pages gathered per spill batch: one blob of the store each, the
+    # reference's fixed gather width
+    _SPILL_BATCH = 8
+
+    def _host_dtype(self) -> np.dtype:
+        """numpy dtype of the pool's pages on the host: a bf16 pool's as
+        16-bit words (numpy has no bfloat16; the store tags them)."""
+        if self.kv["k"].dtype == torch.bfloat16:
+            return np.dtype(np.int16)
+        return torch.empty((), dtype=self.kv["k"].dtype).numpy().dtype
+
+    def _spill_capture(self, evicted) -> None:
+        """Allocator spill hook: runs on the loop thread immediately after
+        an evicting alloc()/free(), BEFORE the caller can dispatch writes
+        that reuse the pages — so the gather dispatched here reads the
+        pre-eviction KV on the ordered stream (the stream the graphs replay
+        on). Only the gather and its device->host copy into pinned memory
+        (``_Fetch``: non-blocking, behind an event) are dispatched here;
+        _kv_tier_flush hands the landed copies to the store."""
+        ents = [(p, d, pos) for (p, d, pos) in evicted if pos is not None]
+        words = self.kv["k"].dtype == torch.bfloat16
+        for i in range(0, len(ents), self._SPILL_BATCH):
+            batch = ents[i:i + self._SPILL_BATCH]
+            pidx = self._to_device(np.array([p for p, _, _ in batch],
+                                            np.int64))
+            fetches = []
+            for name in ("k", "v"):
+                pages = self.kv[name].index_select(2, pidx)
+                fetches.append(_Fetch(pages.view(torch.int16) if words
+                                      else pages))
+            self._tier_pending.append((*fetches, batch))
+
+    def _kv_tier_flush(self, wait: bool = False) -> None:
+        """Hand captured spill gathers whose host copies have landed to the
+        tier store, oldest first; with ``wait`` (shutdown) all of them. The
+        loop never waits on the device here: a copy still in flight waits
+        for a later pass. A failed put degrades to a plain eviction — the
+        pages are long since back on the free list."""
+        while self._tier_pending:
+            fk, fv, ents = self._tier_pending[0]
+            if not (wait or (fk.ready() and fv.ready())):
+                return
+            self._tier_pending.pop(0)
+            try:
+                n = self._kv_tier.put(
+                    fk.wait(), fv.wait(),
+                    digests=[d.hex() for _, d, _ in ents],
+                    tokens=[(pos + 1) * self.cfg.page_size
+                            for _, _, pos in ents])
+                self.stats["spilled_pages"] += n
+            except Exception:  # noqa: BLE001 - spill is best-effort
+                logger.warning("kv-tier spill put failed; chain evicted "
+                               "without spilling", exc_info=True)
+
+    def _chain_digests(self, toks, limit: int) -> list[str]:
+        """Hex chain digests of the first ``limit`` full pages of
+        ``toks``, recomputed over this engine's own tokens (the reference
+        also cross-checks digests computed at serve ingress, which comes
+        with the serve layer)."""
+        ps = self.cfg.page_size
+        digest = b""
+        digs = []
+        for i in range(limit):
+            digest = kvc._chain_digest(digest, toks[i * ps:(i + 1) * ps])
+            digs.append(digest.hex())
+        return digs
+
+    def _kv_tier_begin_restore(self, req: _Request, m_loc: int) -> bool:
+        """Open a pipelined restore stream for the tier-held chain pages
+        past the local match. Returns False when there is nothing past the
+        local match worth probing (or the stream could not open) — the
+        caller then routes straight to prefill. True parks the request in
+        _restoring; _restore_steps drives it from there."""
+        try:
+            ps = self.cfg.page_size
+            toks = req.prompt_tokens
+            limit = min((len(toks) - 1) // ps, len(req.pages))
+            if limit <= m_loc:
+                return False
+            digs = self._chain_digests(toks, limit)
+            # floor the prefetch window at two raw chunks: a window
+            # narrower than one chunk serializes the worker to sub-chunk
+            # progress — it parks before every landing
+            window = max(
+                self.cfg.kv_tier_stream_window_bytes,
+                2 * self.cfg.kv_tier_chunk_pages
+                * kvc.page_raw_nbytes(self.model_cfg, ps))
+            req.restore_stream = self._kv_tier.open_stream(
+                digs, m_loc,
+                chunk_pages=self.cfg.kv_tier_chunk_pages,
+                window_bytes=window,
+                on_ready=self._wake.set)
+        except Exception:  # noqa: BLE001 - restore degrades to a miss
+            logger.warning("kv-tier restore stream failed to open; cold "
+                           "prefill instead", exc_info=True)
+            req.restore_stream = None
+            return False
+        req.restore_started = time.perf_counter()
+        req.restore_page0 = m_loc
+        req.restore_pages = 0
+        return True
+
+    def _restore_steps(self) -> int:
+        """Drive active restore streams (loop thread): take landed chunks,
+        decode + scatter them into the request's pages, enforce the
+        per-chunk budget, and finalize — full or PARTIAL — routing the
+        request on to its suffix prefill."""
+        with self._lock:
+            active = list(self._restoring)
+        if not active:
+            return 0
+        progressed = 0
+        budget_s = max(self.cfg.kv_tier_chunk_timeout_s, 0.1)
+        for req in active:
+            stream = req.restore_stream
+            if req.prefill_cancelled:
+                self._abort_prefilling(req)
+                progressed += 1
+                continue
+            t0 = time.perf_counter()
+            injected = 0
+            try:
+                pairs, _wire, dec_ms = stream.take(
+                    max_pages=self.max_pages_per_seq)
+                if pairs:
+                    injected = self._inject_pages(req, pairs)
+                    req.restore_decode_ms += dec_ms
+            except Exception:  # noqa: BLE001 - degrade to partial/miss
+                logger.warning("kv-tier chunk inject failed; keeping "
+                               "landed pages, prefilling the rest",
+                               exc_info=True)
+                stream.abort()
+            req.restore_blocked_ms += (time.perf_counter() - t0) * 1e3
+            progressed += injected
+            if stream.exhausted:
+                self._finalize_restore(req)
+                progressed += 1
+            elif (time.monotonic() - stream.last_progress) > budget_s * 1.5:
+                # per-chunk budget watchdog: a wedged load must not park
+                # the request forever — cut the stream, keep what landed
+                stream.abort()
+        return progressed
+
+    def _scatter_pages(self, pages: list[int], k_np: np.ndarray,
+                       v_np: np.ndarray) -> None:
+        """Write host pages [L, Hkv, n, page, D] (a bf16 pool's as words)
+        into pool pages ``pages`` IN PLACE: the captured graphs read the
+        pool by address, so it is never rebound. The host -> device copies
+        go through pinned memory, asynchronous (``_to_device``)."""
+        idx = self._to_device(np.array(pages, np.int64))
+        for name, arr in (("k", k_np), ("v", v_np)):
+            pool = self.kv[name]
+            src = self._to_device(np.ascontiguousarray(
+                arr.view(self._host_dtype())))
+            pool.index_copy_(2, idx, src.view(pool.dtype))
+
+    def _inject_pages(self, req: _Request, pairs: list) -> int:
+        """Scatter decoded chain pages (in chain order, continuing at
+        restore_page0 + restore_pages) into this request's pool pages."""
+        ps = self.cfg.page_size
+        pos0 = req.restore_page0 + req.restore_pages
+        t = min(len(pairs), len(req.pages) - pos0)
+        if t <= 0:
+            return 0
+        k_np = np.concatenate([k for k, _ in pairs[:t]], axis=2)
+        v_np = np.concatenate([v for _, v in pairs[:t]], axis=2)
+        with self._prof.compile_scope(
+                "kv_tier_inject", ("kv_tier_inject", self.max_pages_per_seq),
+                mid_traffic=self.stats["requests"] > 0):
+            self._scatter_pages(req.pages[pos0:pos0 + t], k_np, v_np)
+        req.restore_pages += t
+        req.cached_tokens = (pos0 + t) * ps
+        req.prefill_pos = req.cached_tokens
+        req.restore_bytes += int(k_np.nbytes) + int(v_np.nbytes)
+        self.stats["restored_pages"] += t
+        self.stats["tier_hit_tokens"] += t * ps
+        return t
+
+    def _finalize_restore(self, req: _Request) -> None:
+        """Stream over (fully, partially, or not at all): stamp the
+        restore time, count a partial restore, and send the request
+        to its suffix prefill — which starts exactly at the restored
+        frontier, so a mid-chain fault costs recompute of the TAIL only."""
+        stream = req.restore_stream
+        req.restore_stream = None
+        req.restore_ms = (time.perf_counter() - req.restore_started) * 1e3
+        planned = stream.planned or 0
+        if 0 < req.restore_pages < planned:
+            self.stats["restore_partial"] += 1
+        with self._lock:
+            if req in self._restoring:
+                self._restoring.remove(req)
+        self._route_admitted(req)
 
     def _prefill(self, req: _Request):
         """Dispatch the prompt pass WITHOUT waiting for it: the sampled first
@@ -926,13 +1249,20 @@ class LLMEngine:
         return len(active)
 
     def _abort_prefilling(self, req: _Request) -> None:
-        """Release a cancelled mid-chunked-prefill request NOW: slot, pages
-        and tracking. Loop thread only: dispatched chunks may still write these
-        pages, but the stream is ordered, so any later prefill reusing them
-        runs after."""
+        """Release a cancelled mid-chunked-prefill (or mid-restore)
+        request NOW: slot, pages and tracking. Loop thread only: dispatched
+        chunks and injects may still write these pages, but the stream is
+        ordered, so any later prefill reusing them runs after."""
+        if req.restore_stream is not None:
+            # cut the stream first: its worker must stop landing chunks
+            # for pages we are about to hand back to the pool
+            req.restore_stream.abort()
+            req.restore_stream = None
         with self._lock:
             if req in self._prefilling:
                 self._prefilling.remove(req)
+            if req in self._restoring:
+                self._restoring.remove(req)
             if req.slot >= 0:
                 self.free_slots.append(req.slot)
                 req.slot = -1

@@ -34,6 +34,7 @@ Page 0 is RESERVED as the trash page; the allocator never hands it out.
 from __future__ import annotations
 
 import hashlib
+import logging
 import threading
 from collections import OrderedDict
 
@@ -50,6 +51,7 @@ from ray_torch.models.llama import (
 from ray_torch._device import resolve_device
 from ray_torch.ops import paged_attention as paged_ops
 
+logger = logging.getLogger(__name__)
 
 def init_paged_cache(cfg: LlamaConfig, num_pages: int, page_size: int,
                      device: torch.device | str = "cuda") -> dict:
@@ -81,8 +83,10 @@ def _chain_digest(parent: bytes, chunk) -> bytes:
 
 class PageAllocator:
     """Host-side free list + prefix cache over the page pool (page 0
-    reserved as trash). The reference's allocator, less the KV-tier spill
-    hook and the routing-summary exports, which come with those slices.
+    reserved as trash). The reference's allocator, less the digest-chain
+    methods and the routing-summary export (``match_digest_chain``,
+    ``insert_digest_chain``, ``prefix_summary``), whose only callers are the
+    warm start and the prefetch hints of the serve layer still to come.
 
     Prefix caching: pages are REFCOUNTED, and full pages of prompt tokens
     can be registered in a hash-chained index (one node per full page,
@@ -96,6 +100,15 @@ class PageAllocator:
 
     ``cache_pages`` caps how many refcount-zero cached pages are retained
     (0 = bounded only by the pool itself).
+
+    Spilling (serve/llm/kv_tier.py): ``spill_hook``, when set, receives
+    every ``(page, digest, chain_pos)`` evicted during one ``alloc()`` /
+    ``free()`` call — after the allocator lock is released but BEFORE
+    control returns to the caller, i.e. before the caller can dispatch
+    device writes that reuse the freed pages (the hook's gather lands
+    first on the ordered device stream). A raising hook is swallowed:
+    the eviction has already completed, so behavior degrades to a plain
+    free — no page leaks, no deadlock, just no spill.
     """
 
     def __init__(self, num_pages: int, cache_pages: int = 0):
@@ -106,41 +119,62 @@ class PageAllocator:
         self._ref: dict[int, int] = {}          # live page -> refcount
         self._index: dict[bytes, int] = {}      # chain digest -> page
         self._page_key: dict[int, bytes] = {}   # indexed page -> digest
+        self._page_pos: dict[int, int] = {}     # indexed page -> chain pos
         self._lru: OrderedDict[int, None] = OrderedDict()  # ref-0 cached
+        self.spill_hook = None
         self.counters = {"hit_pages": 0, "miss_pages": 0, "evicted": 0,
                          "inserted": 0}
 
     # ---- allocation ----------------------------------------------------
-    def _evict_one_locked(self) -> bool:
+    def _evict_one_locked(self, spilled: list | None = None) -> bool:
         """Drop the least-recently-used refcount-zero cached page back to
-        the free list (its index node dies with it). Lock held."""
+        the free list (its index node dies with it). Lock held. When a
+        spill hook is installed, the page's (page, digest, chain_pos) is
+        appended to ``spilled`` for the post-lock hook call."""
         if not self._lru:
             return False
         page, _ = self._lru.popitem(last=False)
         key = self._page_key.pop(page)
+        pos = self._page_pos.pop(page, None)
         if self._index.get(key) == page:
             del self._index[key]
+        if spilled is not None and self.spill_hook is not None:
+            spilled.append((page, key, pos))
         self._free.append(page)
         self.counters["evicted"] += 1
         return True
 
+    def _fire_spill_hook(self, spilled: list) -> None:
+        hook = self.spill_hook
+        if hook is None or not spilled:
+            return
+        try:
+            hook(spilled)
+        except Exception:  # noqa: BLE001 - spill is best-effort by contract
+            logger.warning(
+                "kv-tier spill hook failed; %d pages evicted without "
+                "spilling", len(spilled), exc_info=True)
+
     def alloc(self, n: int) -> list[int] | None:
         """n fresh pages at refcount 1, evicting cached pages LRU-first
         under pressure; None when free + evictable can't cover n."""
+        spilled: list = []
         with self._lock:
             if len(self._free) + len(self._lru) < n:
                 return None  # can't be satisfied — don't evict for nothing
             while len(self._free) < n:
-                self._evict_one_locked()
+                self._evict_one_locked(spilled)
             out = [self._free.pop() for _ in range(n)]
             for p in out:
                 self._ref[p] = 1
+        self._fire_spill_hook(spilled)
         return out
 
     def free(self, pages: list[int]) -> None:
         """Decref; a page reaching zero parks in the cached LRU if indexed
         (content stays valid for later matches), else rejoins the free
         list. Safe against double-free of already-dead pages."""
+        spilled: list = []
         with self._lock:
             for p in pages:
                 if p == 0:
@@ -160,9 +194,10 @@ class PageAllocator:
                     self._lru.move_to_end(p)
                     while self._cache_cap > 0 \
                             and len(self._lru) > self._cache_cap:
-                        self._evict_one_locked()
+                        self._evict_one_locked(spilled)
                 else:
                     self._free.append(p)
+        self._fire_spill_hook(spilled)
 
     def incref(self, pages: list[int]) -> None:
         with self._lock:
@@ -230,6 +265,9 @@ class PageAllocator:
                     continue
                 self._index[digest] = page
                 self._page_key[page] = digest
+                # chain position: the spill path registers each evicted
+                # page's token length, (pos + 1) * page_size
+                self._page_pos[page] = i
                 added += 1
             self.counters["inserted"] += added
         return added

@@ -171,6 +171,11 @@ def test_unported_features_raise(field, value):
         # (tests/test_torch_spec_decode.py holds it)
         assert TEngine(cfg)._spec_on
         return
+    if field == "kv_tier_enabled":
+        # ported since: the engine builds with the KV tier on
+        # (tests/test_torch_kv_tier.py holds it)
+        assert TEngine(cfg)._kv_tier_on
+        return
     with pytest.raises(NotImplementedError, match=field):
         TEngine(cfg)
 
