@@ -21,23 +21,33 @@ Phases, each of which raises on failure (nothing is caught and carried on):
 3. greedy identity: ``LLMEngine`` on llama_tiny in fp32 through the kernel
    with CUDA graphs on and off, through the gather path and through the
    kernel with speculative decoding on, graphs on and off, must produce
-   identical tokens; each kernel run's launches (all on
-   ``paged_attention_kernel``, counted through graph replays) must equal
-   the plan its stats imply, and the spec runs must run verify rounds.
+   identical tokens, over a chunked prompt, a prefix-hit suffix chunk and
+   four prompts of one prefill bucket admitted in one pass (with graphs on
+   each replays the bucket's graph before a decode dispatch reads their
+   first tokens); with graphs on, one prefill or chunk graph per
+   signature met; each kernel run's launches (all on
+   ``paged_attention_kernel``, counted through graph replays and chunk
+   captures' warm runs) must equal the plan its stats imply, and the spec
+   runs must run verify rounds.
    Then sampling at temperature 1.0: one decode graph replayed twice on
    the same inputs must draw different tokens, and two engines from one
    seed the same stream;
 4. the serving path at full width: ``LLMServer`` serving llama3_1b (bf16,
    random weights from a seeded generator) at the serve bench's engine
    settings answers completions, some concurrent, through the kernels,
-   with CUDA graphs on and then off on the same weights; in each arm every
-   launch counter is zeroed once the engine has started and read after
-   the waves: the launches must be the plan of its stats (every prefill
-   chunk on ``paged_chunk_hopper``, every decode step on
+   with CUDA graphs on and then off on the same weights, in four waves
+   (the fourth wave 1's prompt lengths in fresh text, so that with graphs
+   on every prefill and chunk graph it needs was captured before); in
+   each arm every launch counter is zeroed once the engine has started
+   and read after the waves: the launches must be the plan of its stats
+   (every prefill chunk on ``paged_chunk_hopper``, every decode step on
    ``paged_decode_hopper``, none on ``paged_attention_kernel``). Per arm:
-   TTFT, ITL, the wave's tokens/s, the profiled wave's device busy share,
-   launches and ``cudaGraphLaunch`` calls, warmup seconds and the graphs'
-   pool bytes; how many requests' tokens the arms share;
+   TTFT (and the fourth wave's), ITL, the wave's tokens/s, the profiled
+   wave's device busy share, launches and ``cudaGraphLaunch`` calls,
+   warmup seconds, the prompt captures by kind with each first use's ms,
+   the prefill and chunk phases' host ms, the graphs' pool bytes and how
+   long one replay holds the host; how many requests' tokens the arms
+   share;
 4b. speculative decoding on that path: ``LLMServer`` with
    ``spec_decode_enabled`` on and off, each with CUDA graphs on and off,
    then off again (the control), on phase 4's weights, streams one wave of
@@ -81,10 +91,11 @@ Phases, each of which raises on failure (nothing is caught and carried on):
    prompt A (~1,000 tokens, 7 full pages) cold, again while its prefix is
    resident, then two distinct prompts whose chains evict and spill A's
    (``prefix_cache_max_pages`` 8), then A once more, which restores its 7
-   pages and chunk-prefills the suffix from the restored frontier. The
-   restored pool pages must equal A's cached pages bit for bit (lossless),
-   its greedy tokens the resident run's, and its launches (counted from
-   engine start) the plan of its stats. The same with no codec (raw
+   pages and chunk-prefills the suffix from the restored frontier, by
+   replaying the chunk graph the resident run captured. The restored pool
+   pages must equal A's cached pages bit for bit (lossless), its greedy
+   tokens the resident run's, and its launches (counted from engine
+   start) the plan of its stats. The same with no codec (raw
    pages, the same checks); one of A's pages encoded with int8 must be
    stored lossless (int8 quantizes numpy floating types only, as the
    reference's codec does); llama_tiny fp32 tier runs through the
@@ -94,9 +105,11 @@ Phases, each of which raises on failure (nothing is caught and carried on):
    restored, the codec ratio and the tier's bytes;
 9. phase 4b's bf16 wave once more with spec on and off, each with CUDA
    graphs on and off, each under the profiler: device busy share,
-   launches, host calls (``cudaGraphLaunch`` must be called with graphs
-   on) and the decode route's device time (last, so that its large
-   profiles share nothing with the kernel timings).
+   launches, host calls (``cudaLaunchKernel`` and ``cudaGraphLaunch``, each
+   with its host ms; ``cudaGraphLaunch`` must be called with graphs on,
+   prefill and chunk programs included) and the decode route's device
+   time (last, so that its large profiles share nothing with the kernel
+   timings).
 
 Prints numbers on earlier lines, then a ``{"kernels": [...]}`` line (each
 row names the CUDA kernel it timed under ``kernel``; ``tier_launches`` is
@@ -117,6 +130,7 @@ import re
 import statistics
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
@@ -429,8 +443,56 @@ def graphs_line(eng) -> str:
     g = eng._graphs
     if g is None:
         return "CUDA graphs off"
-    return (f"{g.captures} graphs captured, {g.replays} replays, pool "
-            f"{g.pool_bytes} bytes")
+    return (f"{g.captures} graphs captured ({prompt_captures(eng)} of them "
+            f"prompt programs), {g.replays} replays, pool {g.pool_bytes} "
+            f"bytes")
+
+
+def prompt_captures(eng) -> dict:
+    """The engine's prompt programs (``_prompt_programs``: one captured
+    graph per prefill bucket and chunk length met), counted by kind."""
+    out = {"prefill": 0, "chunk": 0}
+    for kind, _ in eng._prompt_programs:
+        out[kind] += 1
+    return out
+
+
+def check_prompt_programs(name, eng, graphs: bool) -> None:
+    """With graphs on, one prompt program per prefill and chunk signature
+    the engine met, each first used inside ``compile_scope``, none among
+    the decode and verify ``_programs``, and every graph captured once;
+    with graphs off, none."""
+    seen = {s for s in eng._prof._seen if s[0] in ("prefill", "chunk")}
+    progs = set(eng._prompt_programs)
+    ok = (progs == seen and not progs & set(eng._programs)
+          and eng._graphs.captures == len(eng._programs) + len(progs)
+          ) if graphs else not progs
+    if not ok:
+        raise AssertionError(f"{name}: prompt programs {sorted(progs)}, "
+                             f"signatures met {sorted(seen)}; "
+                             f"{graphs_line(eng)}")
+
+
+def admit_together(eng, prompts) -> list:
+    """Submit greedy ``prompts`` while the engine loop waits at the top of
+    its next admission pass, so that one pass admits (and prefills) them
+    all before any decode dispatch. Returns their request ids."""
+    gate, held = threading.Event(), threading.Event()
+    admit = eng._admit
+
+    def gated():
+        held.set()
+        gate.wait()
+        return admit()
+
+    eng._admit = gated
+    try:
+        if not held.wait(10.0):
+            raise AssertionError("the engine loop reached no admission pass")
+        return [eng.submit(p, temperature=0.0) for p in prompts]
+    finally:
+        del eng._admit
+        gate.set()
 
 
 def phase_identity(card: str):
@@ -444,7 +506,11 @@ def phase_identity(card: str):
     shared = "the quick brown fox jumps over the lazy dog"  # 5 full pages
     waves = [[shared + " and keeps running far past the fence",  # > chunk
               "abc abc abc abc abc", "abc abc abc", "hello"],
-             [shared + " once more"]]                        # prefix hit
+             [shared + " once more"]]                 # prefix-hit suffix chunk
+    # four prompts of one prefill bucket, admitted in one pass: each
+    # replay of the bucket's graph overwrites its output before a decode
+    # dispatch reads the earlier prompts' first tokens
+    same_bucket = ["abc", "hello there", "zq", "one two three"]
     outs, launches = {}, {}
     for run, kernel, spec, graphs in (
             ("kernel", "cuda", False, True),
@@ -463,8 +529,9 @@ def phase_identity(card: str):
             for name in pa.launches:        # count this engine's traffic
                 pa.launches[name] = 0
             toks = []
-            for wave in waves:
-                rids = [eng.submit(p, temperature=0.0) for p in wave]
+            for wave in waves + [same_bucket]:
+                rids = (admit_together(eng, wave) if wave is same_bucket
+                        else [eng.submit(p, temperature=0.0) for p in wave])
                 res = [eng.result(r, timeout=300.0) for r in rids]
                 for r in res:
                     if r["error"] is not None:
@@ -478,9 +545,11 @@ def phase_identity(card: str):
         assert stats["prefix_hits"] >= 1 and stats["attn_chunk_dispatches"] > 0
         if (eng._graphs is not None) != graphs or graphs and not (
                 eng._graphs.replays > 0
-                and eng._graphs.captures == len(eng._programs)):
+                and all(prompt_captures(eng).values())):
             raise AssertionError(f"{run}: {graphs_line(eng)}, programs "
-                                 f"{sorted(eng._programs)}")
+                                 f"{sorted(eng._programs)}, prompt programs "
+                                 f"{sorted(eng._prompt_programs)}")
+        check_prompt_programs(run, eng, graphs)
         if spec:
             # with graphs on the host dispatches a request's decode blocks
             # before its drafts show, so it may run few verify rounds here;
@@ -491,7 +560,8 @@ def phase_identity(card: str):
             if not (graphs or stats["spec_rounds"] > 0):
                 raise AssertionError("the spec-on engine ran no verify round")
         if kernel == "cuda":
-            want = planned_launches(cfg, stats)
+            want = planned_launches(cfg, stats,
+                                    prompt_captures(eng)["chunk"])
             log(f"  {run}: launches {launches[run]} (planned {want}); "
                 f"{graphs_line(eng)}")
             if launches[run] != want or not want["paged_attention_kernel"]:
@@ -502,10 +572,17 @@ def phase_identity(card: str):
         if outs[run] != outs["kernel"]:
             raise AssertionError(f"greedy tokens differ: kernel "
                                  f"{outs['kernel']} vs {run} {outs[run]}")
+    firsts = [t[0] for t in outs["kernel"][-len(same_bucket):]]
     log(f"  llama_tiny fp32: {len(outs['kernel'])} requests, "
         f"{sum(map(len, outs['kernel']))} greedy tokens identical across "
-        f"{', '.join(outs)} (graphs on unless eager; prefix hit + chunked "
-        f"prefill on the path) [{card}]")
+        f"{', '.join(outs)} (graphs on unless eager, prefill and chunk "
+        f"programs included; prefix hit + chunked prefill on the path; "
+        f"{len(same_bucket)} prompts of one bucket admitted in one pass, "
+        f"first tokens {firsts}) [{card}]")
+    if firsts.count(firsts[-1]) == len(firsts):
+        raise AssertionError("the same-bucket prompts share their first "
+                             "token: the case cannot show a token left "
+                             "aliasing its graph's output")
     phase_sampling(mcfg, params, card)
     return launches["kernel"]
 
@@ -616,12 +693,54 @@ def serve_config(**kw):
         decode_block=8, pipeline_depth=3, pressure_decode_block=2, **kw)
 
 
+def first_uses(eng) -> dict:
+    """From now on, each signature's first-use ms as ``compile_scope``
+    times it (with graphs on a prompt program's capture, warm run and
+    first replay; off, its first eager pass), by signature."""
+    ms, record = {}, eng._prof._record_compile
+
+    def timed(kind, sig, dt, mid_traffic):
+        if sig not in eng._prof._seen:
+            ms[sig] = 1e3 * dt
+        record(kind, sig, dt, mid_traffic)
+
+    eng._prof._record_compile = timed
+    return ms
+
+
+def replay_hold(eng, sigs, reps: int = 5) -> dict:
+    """Per signature, on its trash inputs (page table of zeros), with the
+    engine idle: the host ms that one graph replay holds the caller
+    (``cudaGraphLaunch`` returning), at the first of ``reps`` replays and
+    their median, and the median ms until the card has run it."""
+    out = {}
+    for sig in sigs:
+        prompt = sig in eng._prompt_programs
+        prog = (eng._prompt_programs if prompt else eng._programs)[sig]
+        trash = (eng._prompt_inputs if prompt else eng._trash_inputs)(sig)
+        for dst, src in zip(prog.inputs, trash):
+            dst.copy_(src)
+        held, done = [], []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            prog.graph.replay()
+            held.append(1e3 * (time.perf_counter() - t0))
+            torch.cuda.synchronize()
+            done.append(1e3 * (time.perf_counter() - t0))
+        out[sig] = (held[0], statistics.median(held),
+                    statistics.median(done))
+    return out
+
+
 def serve_arm(card: str, graphs: bool, params=None, max_tokens: int = 32):
     """One arm of phase 4: an ``LLMServer`` (over ``params``, else weights
-    from seed 0) with CUDA graphs on or off answers three waves of
-    completions, the third profiled; the launch counters are zeroed once
-    the engine has started and must be the plan of its stats after the
-    waves. Returns what the arm measured."""
+    from seed 0) with CUDA graphs on or off answers four waves of
+    completions, the third profiled, the fourth wave 1's prompt lengths in
+    fresh text (with graphs on, every prompt program it needs is already
+    captured); the launch counters are zeroed once the engine has started
+    and must be the plan of its stats after the waves. Returns what the
+    arm measured."""
     from ray_torch.ops import paged_attention as pa
     from ray_torch.serve.llm import LLMServer
 
@@ -634,6 +753,9 @@ def serve_arm(card: str, graphs: bool, params=None, max_tokens: int = 32):
     wave2 = [shared + " second suffix, a prefix hit",
              "request 6: " + word]
     wave3 = [f"request {i}: " + word * 3 for i in range(7, 15)]
+    fresh = "pack my box with five dozen liquor jugs, then "
+    wave4 = [(f"answer {i}: " + fresh * 30)[:len(p)]
+             for i, p in enumerate(wave1)]
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -643,6 +765,8 @@ def serve_arm(card: str, graphs: bool, params=None, max_tokens: int = 32):
     eng = srv.engine
     warmup_s = eng._prof.compile_s          # the warmup's first uses
     captured = eng._graphs.captures if graphs else 0
+    warm_pool = eng._graphs.pool_bytes if graphs else 0
+    first_ms = first_uses(eng)
     try:
         for name in pa.launches:            # count the main path only
             pa.launches[name] = 0
@@ -660,8 +784,14 @@ def serve_arm(card: str, graphs: bool, params=None, max_tokens: int = 32):
                 walls.append(time.perf_counter() - t0)
             # where a wave's time goes, outside the timed waves
             prof = device_profile(lambda: results.extend(serve(wave3)))
+            before_warm = dict(first_ms)
+            results += serve(wave4)
         stats = srv.engine_stats()
         launches = dict(pa.launches)
+        # the widest decode block has not been replayed in these waves
+        hold = replay_hold(eng, sorted(eng._prompt_programs) + [
+            ("decode", w, cfg.decode_block)
+            for w in (8, cfg.max_batch_size)]) if graphs else {}
     finally:
         srv.shutdown()
     torch.cuda.synchronize()
@@ -686,7 +816,7 @@ def serve_arm(card: str, graphs: bool, params=None, max_tokens: int = 32):
     # every prefill chunk (16 rows or more a rep, so past the decode
     # route's 16 rows) on the chunk route, every decode step on the decode
     # route: in bf16 serving nothing is left for paged_attention_kernel
-    want = planned_launches(cfg, stats)
+    want = planned_launches(cfg, stats, prompt_captures(eng)["chunk"])
     log(f"  kernel launches on the main path: "
         + ", ".join(f"{k} {v}" for k, v in launches.items())
         + f" (planned {want}); engine decode blocks "
@@ -703,11 +833,19 @@ def serve_arm(card: str, graphs: bool, params=None, max_tokens: int = 32):
     if not paged_ms["paged_decode_hopper"] > 0:
         raise AssertionError("the profiled wave ran no paged_decode_hopper")
     if graphs and not (prof["calls"].get("cudaGraphLaunch", 0) > 0
-                       and eng._graphs.captures == captured):
+                       and eng._graphs.captures == captured
+                       + len(eng._prompt_programs)):
         raise AssertionError(f"graphs on: {graphs_line(eng)} ({captured} "
                              f"at warmup), cudaGraphLaunch "
                              f"{prof['calls'].get('cudaGraphLaunch', 0)}")
+    check_prompt_programs("phase 4", eng, graphs)
+    n = prompt_captures(eng)
+    if n["prefill"] > 7 or n["chunk"] > 7 or first_ms != before_warm:
+        raise AssertionError(f"prompt programs {sorted(eng._prompt_programs)}"
+                             f"; first uses in the warm wave "
+                             f"{set(first_ms) - set(before_warm)}")
     ttfts = [r["ray_tpu"]["ttft_s"] for r in results[:10]]
+    warm = [r["ray_tpu"]["ttft_s"] for r in results[-len(wave4):]]
     waits = [r["ray_tpu"]["queue_wait_s"] for r in results[:10]]
     gaps = [(r["ray_tpu"]["latency_s"] - ttft) / (max_tokens - 1)
             for r, ttft in zip(results, ttfts)]
@@ -717,6 +855,11 @@ def serve_arm(card: str, graphs: bool, params=None, max_tokens: int = 32):
             "setup_s": setup_s, "warmup_s": warmup_s,
             "graphs": graphs_line(eng),
             "pool_bytes": eng._graphs.pool_bytes if graphs else 0,
+            "warm_pool": warm_pool, "prompt_captures": n,
+            "first_ms": {s: ms for s, ms in first_ms.items()
+                         if s[0] in ("prefill", "chunk")},
+            "hold": hold,
+            "warm_p50": statistics.median(warm), "warm_max": max(warm),
             "ttft_p50": statistics.median(ttfts), "ttft_max": max(ttfts),
             "ttft_long": ttfts[6], "ttft_hit": ttfts[8],
             "wait_p50": statistics.median(waits),
@@ -766,7 +909,28 @@ def phase_serve(card: str):
             f"{pr['calls'].get('cudaStreamSynchronize', 0)}; "
             f"peak torch.cuda.max_memory_allocated "
             f"{a['peak'] / 2**30:.3f} GiB [{card}]")
+        log(f"  graphs {arm:<3}: prompt programs captured "
+            f"{a['prompt_captures']} (pool {a['warm_pool']} bytes after "
+            f"warmup, {a['pool_bytes']} after the waves); first use ms: "
+            + ", ".join(
+                f"{k}/{n} {ms:.1f}" for (k, n), ms in sorted(
+                    a["first_ms"].items())) + f"; warm wave (wave 1's "
+            f"lengths, fresh text) TTFT p50 {1e3 * a['warm_p50']:.1f} ms, "
+            f"max {1e3 * a['warm_max']:.1f} ms [{card}]")
+        if a["hold"]:
+            log(f"  graphs {arm:<3}: one replay on trash inputs, engine "
+                f"idle, host held at the first / median, until the card is "
+                f"done (ms): " + ", ".join(
+                    f"{'/'.join(map(str, s))} {f:.3f} / {h:.3f}, {d:.3f}"
+                    for s, (f, h, d) in a["hold"].items()) + f" [{card}]")
     on, off = arms["on"], arms["off"]
+    log(f"  warm wave TTFT graphs on / off: p50 "
+        f"{on['warm_p50'] / off['warm_p50']:.3f}x, max "
+        f"{on['warm_max'] / off['warm_max']:.3f}x; prefill phase p50 "
+        f"{on['stats']['phase_prefill_p50_ms']} / "
+        f"{off['stats']['phase_prefill_p50_ms']} ms, chunk_prefill "
+        f"{on['stats']['phase_chunk_prefill_p50_ms']} / "
+        f"{off['stats']['phase_chunk_prefill_p50_ms']} ms [{card}]")
     compare_streams("phase 4 bf16 completion text, graphs on vs off",
                     on["texts"], off["texts"], card)
     log(f"  graphs on / off: wave tokens/s "
@@ -813,12 +977,15 @@ def stream_wave(srv, prompts, max_tokens):
     return asyncio.run(wave())
 
 
-def planned_launches(cfg, stats) -> dict:
+def planned_launches(cfg, stats, chunk_captures: int = 0) -> dict:
     """Launches per kernel that an engine run's stats imply: n_layers for
     each decode step, each verify round (one launch at [W, k + 1]) and each
     prefill chunk, each on the kernel ``paged_attention.route`` plans for
     its rows (in bf16: n_layers x (steps - k x verify rounds) on
-    ``paged_decode_hopper``)."""
+    ``paged_decode_hopper``), and n_layers on the chunk's kernel for each
+    of ``chunk_captures``, the chunk graphs captured in the run: each
+    capture's eager warm run (the capture itself launches nothing, and
+    its replays count as chunks)."""
     from ray_torch.ops import paged_attention as pa
 
     mc, k = cfg.model_config, cfg.spec_draft_len
@@ -832,7 +999,8 @@ def planned_launches(cfg, stats) -> dict:
     want = dict.fromkeys(pa.launches, 0)
     for rows, count in ((1, stats["steps"] - (k + 1) * verify),
                         (k + 1, verify),
-                        (cfg.prefill_chunk, stats["attn_chunk_dispatches"])):
+                        (cfg.prefill_chunk,
+                         stats["attn_chunk_dispatches"] + chunk_captures)):
         want[route(rows)] += layers * count
     return want
 
@@ -873,7 +1041,7 @@ def serve_wave(cfg, params, wave, max_tokens):
                 or final["usage"]["completion_tokens"] != max_tokens:
             raise AssertionError(f"a request returned {len(toks)} tokens, "
                                  f"{final}")
-    want = planned_launches(cfg, stats)
+    want = planned_launches(cfg, stats, prompt_captures(srv.engine)["chunk"])
     log(f"  kernel launches {launches} (planned {want}); engine steps "
         f"{stats['steps']}, decode blocks {stats['attn_decode_dispatches']}"
         f", verify rounds {stats['attn_verify_dispatches']}, chunks "
@@ -882,9 +1050,11 @@ def serve_wave(cfg, params, wave, max_tokens):
         raise AssertionError(f"launches {launches} are not the planned "
                              f"{want}")
     if graphs is not None and not (graphs.replays > 0
-                                   and graphs.captures == captured):
+                                   and graphs.captures == captured
+                                   + len(srv.engine._prompt_programs)):
         raise AssertionError(f"{graphs_line(srv.engine)}, {captured} "
                              f"captured at warmup")
+    check_prompt_programs("serve wave", srv.engine, graphs is not None)
     return [toks for toks, _ in outs], wall, stats, launches, rows
 
 
@@ -1012,9 +1182,14 @@ def phase_spec_profile(card: str, max_tokens: int = 64):
                 srv.shutdown()
             paged = sum(ms for key, ms in prof["by_kernel"].items()
                         if "paged_decode_hopper" in key)
+            calls, call_ms = prof["calls"], prof["call_ms"]
             log(f"  paged_decode_hopper {paged:.2f} ms = "
-                f"{100 * paged / prof['busy_ms']:.1f}% of the device time "
-                f"[{card}]")
+                f"{100 * paged / prof['busy_ms']:.1f}% of the device time; "
+                f"host calls: cudaLaunchKernel "
+                f"{calls.get('cudaLaunchKernel', 0)} "
+                f"({call_ms.get('cudaLaunchKernel', 0.0):.1f} ms), "
+                f"cudaGraphLaunch {calls.get('cudaGraphLaunch', 0)} "
+                f"({call_ms.get('cudaGraphLaunch', 0.0):.1f} ms) [{card}]")
             if graphs and not prof["calls"].get("cudaGraphLaunch", 0) > 0:
                 raise AssertionError("the graphs-on profile shows no "
                                      "cudaGraphLaunch")
@@ -1720,6 +1895,15 @@ def tier_arm(card: str, params, codec: str):
     toks_a = eng.tokenizer.encode(prompts["A"])
     captured = eng._graphs.captures
     runs = {}
+    chunks = []                             # (signature, start) replayed
+    replay = eng._replay_prompt
+
+    def recorded(sig, body, *values):
+        if sig[0] == "chunk":
+            chunks.append((sig, int(values[3][0])))
+        return replay(sig, body, *values)
+
+    eng._replay_prompt = recorded
 
     def serve(name, prompt):
         before = eng.engine_stats()
@@ -1756,15 +1940,22 @@ def tier_arm(card: str, params, codec: str):
             raise AssertionError(f"A's chain did not spill: "
                                  f"{eng.engine_stats()['spilled_pages']}")
         before = dict(pa.launches)
+        made = len(eng._prompt_programs)
+        del chunks[:]
         restored = serve("restored", prompts["A"])
         launches = {k: pa.launches[k] - before[k] for k in pa.launches}
+        suffix = list(chunks)
+        made = len(eng._prompt_programs) - made
         total = dict(pa.launches)
         stats = eng.engine_stats()
         after = [p for _, p in _chain(eng, toks_a)]
         got = _pool_pages(eng, after)
         graphs = (eng._graphs.captures, eng._graphs.replays)
+        check_prompt_programs(f"tier {codec}", eng, True)
+        n_chunk = prompt_captures(eng)["chunk"]
     finally:
         srv.shutdown()
+        del eng._replay_prompt
     req, delta = restored["req"], restored["delta"]
     if not (delta["restored_pages"] >= 7 and req.restore_pages == 7
             and delta["tier_hit_tokens"] == 7 * 128
@@ -1772,10 +1963,18 @@ def tier_arm(card: str, params, codec: str):
             and delta["prefix_hit_tokens"] == 0):
         raise AssertionError(f"tier {codec}: the restore did not bring A's "
                              f"7 pages back: {delta}")
-    if graphs[0] != captured or not graphs[1] > 0:
+    if graphs[0] != captured + len(eng._prompt_programs) \
+            or not graphs[1] > 0:
         raise AssertionError(f"graphs: {graphs} against {captured} captured")
+    # the restored request's suffix: one chunk graph, captured before,
+    # replayed from the restored frontier
+    frontier = 7 * cfg.page_size
+    if made or suffix != [(("chunk", eng._bucket(len(toks_a) - frontier)),
+                           frontier)]:
+        raise AssertionError(f"tier {codec}: the restored run replayed "
+                             f"chunks {suffix} and captured {made} graphs")
     want = planned_launches(cfg, delta)
-    want_all = planned_launches(cfg, stats)
+    want_all = planned_launches(cfg, stats, n_chunk)
     if launches != want or total != want_all \
             or not want["paged_chunk_hopper"] \
             or not want["paged_decode_hopper"] \
@@ -1787,7 +1986,7 @@ def tier_arm(card: str, params, codec: str):
     same = all(torch.equal(_bits(g), _bits(w)) for g, w in zip(got, snapshot))
     return {"cfg": cfg, "runs": runs, "launches": launches, "total": total,
             "want": want, "stats": stats, "same": same, "eng": eng,
-            "pages": after, "snapshot": snapshot}
+            "pages": after, "snapshot": snapshot, "suffix": suffix}
 
 
 def tier_costs(eng, pages, snapshot, reps: int = 5) -> dict:
@@ -1902,7 +2101,8 @@ def tier_tiny(card: str):
                 scale = w.abs().amax(dim=(2, 3, 4), keepdim=True) / 127.0
                 worst = max(worst, float(((g - w).abs() / scale).max()))
         if tier:
-            want = planned_launches(cfg, stats)
+            check_prompt_programs(run, eng, True)
+            want = planned_launches(cfg, stats, prompt_captures(eng)["chunk"])
             if stats["restored_pages"] != 3 or len(got) != 3 \
                     or launches != want \
                     or not want["paged_attention_kernel"]:
@@ -1940,7 +2140,8 @@ def phase_tier(card: str):
         f"{st['spilled_pages']}, restored_pages {st['restored_pages']}, "
         f"tier_hit_tokens {st['tier_hit_tokens']} [{card}]")
     log(f"  restored run launches {a['launches']} (planned {a['want']}); "
-        f"phase {a['total']} [{card}]")
+        f"phase {a['total']}; its suffix chunk replayed a chunk graph "
+        f"(signature, start) {a['suffix']} [{card}]")
     same_tokens = runs["restored"]["tokens"] == runs["resident"]["tokens"]
     log(f"  greedy tokens: restored == resident {same_tokens}; cold == "
         f"resident {runs['cold']['tokens'] == runs['resident']['tokens']} "

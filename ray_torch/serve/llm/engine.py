@@ -21,11 +21,18 @@ How the reference's JAX machinery maps onto PyTorch:
   ``_Program`` per signature): captured where the reference compiles
   (warmup, else first use, inside the same ``compile_scope``) after one
   eager warm run on a side stream, and replayed on static inputs (the
-  index vector, the drafts) that every dispatch fills in place. All graphs
-  share one memory pool. With graphs off, and on the CPU, the same
-  functions run eagerly on the same static inputs. Prefills, prefill
-  chunks, first-token samples and slot patches stay eager: the reference
-  compiles them as programs of their own;
+  index vector, the drafts) that every dispatch fills in place. With
+  graphs off, and on the CPU, the same functions run eagerly on the same
+  static inputs;
+- the reference's prefill program (one per prompt bucket) and chunk
+  program (one per chunk length) are likewise a captured graph each on
+  the card (``_prompt_programs``): captured at first use inside the same
+  ``compile_scope``, as the reference's jit compiles them, and replayed
+  on static inputs (tokens, page table, ``true_len``, ``start``,
+  temperature) that each prompt pass fills in place; the first token is
+  sampled inside the graph and cloned behind the replay. With graphs off
+  the prompt passes run eagerly as plain calls. All graphs share one
+  memory pool. Slot patches stay eager;
 - the host harvests sampled tokens ``pipeline_depth`` blocks behind: each
   block's tokens start a ``non_blocking`` copy into pinned host memory at
   dispatch time and record a CUDA event; ``event.query()`` is the
@@ -52,9 +59,10 @@ How the reference's JAX machinery maps onto PyTorch:
 
 This slice leaves out, for later slices: the tier's warm start, prefetch
 hints and eager spill of live chains, disaggregation, failover
-continuations, tensor parallelism, and the flight-recorder / tracing /
-attribution / deadline hooks. A config that switches one of them on
-raises.
+continuations, tensor parallelism, request deadlines, and the
+flight-recorder / tracing / attribution hooks. Only the fields of
+``_NOT_PORTED`` (tensor parallelism and disaggregation) raise when set;
+the others have no switch in the port.
 
 Threading model: one loop thread drives the device. ``submit()`` /
 ``drain()`` / ``result()`` / ``cancel()`` are thread-safe.
@@ -178,11 +186,15 @@ class _Fetch:
 
 @dataclass
 class _Program:
-    """One decode (``("decode", width, block)``) or verify
-    (``("verify", width, draft_len)``) signature: the static inputs that
-    every dispatch of it fills in place (the index vector [W]; for verify
-    also the drafts [W, k]) and, with graphs on, its captured graph, the
-    graph's output and the kernel launches one replay makes."""
+    """One engine program's signature: decode (``("decode", width,
+    block)``), verify (``("verify", width, draft_len)``), prefill
+    (``("prefill", bucket)``) or chunk (``("chunk", length)``). Holds the
+    static inputs that every dispatch of it fills in place (decode: the
+    index vector [W]; verify: also the drafts [W, k]; prefill: tokens
+    [1, L], page table [max_pages], ``true_len`` [1] and temperature [1];
+    chunk: the same with ``start`` [1] before the temperature) and, with
+    graphs on, its captured graph, the graph's output and the kernel
+    launches one replay makes."""
     inputs: tuple
     graph: Any = None
     out: Optional[torch.Tensor] = None
@@ -218,16 +230,33 @@ def _add_launches(delta: dict) -> None:
         paged_ops.launches[k] += n
 
 
+def _copy_in(dst: torch.Tensor, values: np.ndarray) -> None:
+    """Copy a host array into a static input in place: on the card through
+    a fresh pinned tensor, so it is asynchronous (see
+    ``LLMEngine._to_device``)."""
+    src = torch.from_numpy(values)
+    if dst.device.type == "cuda":
+        src = src.pin_memory()
+    dst.copy_(src, non_blocking=True)
+
+
 class _CudaGraphs:
     """The engine's captured programs on the card, and their counters
     (``captures``, ``replays``, ``pool_bytes``), which ``engine_stats()``
     leaves out.
 
     Every graph allocates from ONE private memory pool. A graph's output is
-    read once, by the ``_Fetch`` copy enqueued right behind its replay on
-    the same stream, so no later replay can overwrite memory that is still
-    to be read; what graphs read and write across replays (weights, the KV
-    pool, slot state, static inputs) lives outside the pool."""
+    read once, by a device copy enqueued right behind its replay on the
+    same stream (a decode block's or verify round's ``_Fetch`` copy, a
+    prompt program's clone of its token), so no later replay, of the same
+    graph or another, can overwrite memory that is still to be read; what
+    graphs read and write across replays (weights, the KV pool, slot
+    state, static inputs) lives outside the pool.
+
+    Captures use the thread-local capture mode: a prompt program is
+    captured mid-traffic, while other threads (request handlers, readers
+    of ``engine_stats()``) may call CUDA, which the global mode would
+    count against the capture."""
 
     def __init__(self, device: torch.device, generator: torch.Generator):
         self.device = device
@@ -259,7 +288,8 @@ class _CudaGraphs:
             gc_on = gc.isenabled()
             gc.disable()
             try:
-                graph.capture_begin(pool=self._pool)
+                graph.capture_begin(pool=self._pool,
+                                    capture_error_mode="thread_local")
                 try:
                     out = body(*prog.inputs)
                 finally:
@@ -410,6 +440,9 @@ class LLMEngine:
         # decode and verify signatures (_Program), made at first use; with
         # graphs on, each captured into _graphs' pool
         self._programs: dict[tuple, _Program] = {}
+        # prefill and chunk signatures (_Program), each made and captured
+        # at its first use with graphs on; unused with graphs off
+        self._prompt_programs: dict[tuple, _Program] = {}
         self._graphs = _CudaGraphs(dev, self._gen) if graphs_on else None
 
     # ---- device programs -------------------------------------------------
@@ -477,13 +510,59 @@ class LLMEngine:
         self._dev_tokens[idx] = all_toks[-1]
         return all_toks
 
-    def _first_token(self, logits, temperature: float):
+    def _first_token(self, logits, temperature):
         """Sample a prompt pass's first token on the device (no host
-        sync; the harvest pipeline records it). top_k is the ENGINE's."""
-        temp = torch.full((1,), temperature, dtype=torch.float32,
-                          device=self.device)
-        return kvc.sample_tokens(logits[None, :], self._gen, temp,
+        sync; the harvest pipeline records it). top_k is the ENGINE's.
+        ``temperature`` is a float, or a prompt program's [1] fp32 static
+        input."""
+        if not isinstance(temperature, torch.Tensor):
+            temperature = torch.full((1,), temperature, dtype=torch.float32,
+                                     device=self.device)
+        return kvc.sample_tokens(logits[None, :], self._gen, temperature,
                                  self.cfg.top_k)[0]
+
+    def _prefill_program(self, toks, table, true_len, temp):
+        """A prefill signature's body: the prompt pass and its first
+        token."""
+        return self._first_token(kvc.paged_prefill(
+            self.params, self.kv, table, toks, true_len, self.model_cfg,
+            self.cfg.page_size), temp)
+
+    def _chunk_program(self, toks, table, true_len, start, temp):
+        """A chunk signature's body: one prefill chunk and the token
+        sampled after it (used only after the final chunk)."""
+        return self._first_token(kvc.paged_prefill_chunk(
+            self.params, self.kv, table, toks, start, true_len,
+            self.model_cfg, self.cfg.page_size, self._attn_backend), temp)
+
+    def _prompt_inputs(self, sig: tuple) -> tuple:
+        """Static inputs of a prefill or chunk signature whose page table
+        is all zeros: a run on them writes only into the trash page."""
+        kind, n = sig
+        dev = self.device
+        ints = [torch.full((1,), n, dtype=torch.int32, device=dev)]
+        if kind == "chunk":
+            ints.append(torch.zeros((1,), dtype=torch.int32, device=dev))
+        return (torch.zeros((1, n), dtype=torch.long, device=dev),
+                torch.zeros((self.max_pages_per_seq,), dtype=torch.int32,
+                            device=dev),
+                *ints, torch.zeros((1,), dtype=torch.float32, device=dev))
+
+    def _replay_prompt(self, sig: tuple, body, *values: np.ndarray):
+        """Dispatch a prefill or chunk signature with graphs on: capture
+        it at its first use, fill its static inputs in place and replay
+        it. Returns a clone of the sampled token, taken right behind the
+        replay: a later replay of the same graph (the next same-length
+        prompt admitted before a decode dispatch reads this one's token)
+        overwrites the graph's output."""
+        prog = self._prompt_programs.get(sig)
+        if prog is None:
+            prog = _Program(self._prompt_inputs(sig))
+            self._graphs.capture(prog, body, self._prompt_inputs(sig))
+            self._prompt_programs[sig] = prog
+        for dst, v in zip(prog.inputs, values):
+            _copy_in(dst, v)
+        return self._graphs.replay(prog).clone()
 
     def _to_device(self, arr: np.ndarray) -> torch.Tensor:
         """A host array on the engine's device. On the card the copy goes
@@ -498,12 +577,9 @@ class LLMEngine:
         return src
 
     def _stage(self, dst: torch.Tensor, values: np.ndarray) -> None:
-        """Copy a host array into a static input in place (asynchronous on
-        the card, as in ``_to_device``)."""
-        src = torch.from_numpy(values)
-        if dst.device.type == "cuda":
-            src = src.pin_memory()
-        dst.copy_(src, non_blocking=True)
+        """Copy a host array into a decode or verify static input in
+        place."""
+        _copy_in(dst, values)
 
     def _trash_inputs(self, sig: tuple) -> tuple:
         """Inputs of a decode or verify signature that select only the
@@ -1175,11 +1251,17 @@ class LLMEngine:
         with self._prof.phase("prefill"), self._prof.compile_scope(
                 "prefill", ("prefill", bucket),
                 mid_traffic=self.stats["requests"] > 0):
-            logits = kvc.paged_prefill(
-                self.params, self.kv, self._to_device(table),
-                self._to_device(toks), plen, self.model_cfg,
-                self.cfg.page_size)
-            tok_dev = self._first_token(logits, req.temperature)
+            if self._graphs is None:
+                logits = kvc.paged_prefill(
+                    self.params, self.kv, self._to_device(table),
+                    self._to_device(toks), plen, self.model_cfg,
+                    self.cfg.page_size)
+                tok_dev = self._first_token(logits, req.temperature)
+            else:
+                tok_dev = self._replay_prompt(
+                    ("prefill", bucket), self._prefill_program, toks, table,
+                    np.array([plen], np.int32),
+                    np.array([req.temperature], np.float32))
         self._arm_slot(req, table, tok_dev, plen)
 
     def _arm_slot(self, req: _Request, table, tok_dev, plen: int) -> None:
@@ -1235,11 +1317,18 @@ class LLMEngine:
             with self._prof.phase("chunk_prefill"), self._prof.compile_scope(
                     "chunk", ("chunk", clen),
                     mid_traffic=self.stats["requests"] > 0):
-                logits = kvc.paged_prefill_chunk(
-                    self.params, self.kv, self._to_device(table),
-                    self._to_device(toks), start, plen, self.model_cfg,
-                    self.cfg.page_size, self._attn_backend)
-                tok_dev = self._first_token(logits, req.temperature)
+                if self._graphs is None:
+                    logits = kvc.paged_prefill_chunk(
+                        self.params, self.kv, self._to_device(table),
+                        self._to_device(toks), start, plen, self.model_cfg,
+                        self.cfg.page_size, self._attn_backend)
+                    tok_dev = self._first_token(logits, req.temperature)
+                else:
+                    tok_dev = self._replay_prompt(
+                        ("chunk", clen), self._chunk_program, toks, table,
+                        np.array([plen], np.int32),
+                        np.array([start], np.int32),
+                        np.array([req.temperature], np.float32))
             self.stats["attn_chunk_dispatches"] += 1
             req.prefill_pos = min(start + clen, plen)
             if req.prefill_pos >= plen:

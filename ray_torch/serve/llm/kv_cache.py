@@ -433,17 +433,35 @@ def paged_verify_step(params, kv, page_tables, seq_lens, tokens,
     return _logits(x, params), seq_lens + t                       # [B,T,V]
 
 
-def paged_prefill(params, kv, page_table, tokens, true_len: int,
+def _device_scalar(x, device) -> torch.Tensor:
+    """A prompt pass's ``start`` or ``true_len`` as a [1] int32 tensor on
+    ``device``: a Python int is filled in, a [1] integer tensor already
+    there is used as it is (never read on the host), so a captured pass
+    reads its value at every replay."""
+    if isinstance(x, torch.Tensor):
+        return x.reshape(1).to(torch.int32)
+    return torch.full((1,), int(x), dtype=torch.int32, device=device)
+
+
+def _last_row(x: torch.Tensor, rel: torch.Tensor) -> torch.Tensor:
+    """Row ``rel`` ([1], clamped into the span) of x [1, T, D]: [1, D]."""
+    rel = rel.clamp(0, x.shape[1] - 1).long()
+    return x.index_select(1, rel)[:, 0]
+
+
+def paged_prefill(params, kv, page_table, tokens, true_len,
                   cfg: LlamaConfig, page_size: int):
     """Prefill ONE slot's prompt into its pages; updates ``kv`` in place.
 
     tokens: [1, T] (bucket-padded); page_table: [max_pages] for this slot;
-    true_len: actual prompt length. Returns last-token logits [vocab]
-    (fp32). Padding positions (>= true_len) write to the trash page, so
-    junk never lands in real pages.
+    true_len: actual prompt length, a Python int or a [1] integer tensor
+    on the pool's device. Returns last-token logits [vocab] (fp32).
+    Padding positions (>= true_len) write to the trash page, so junk never
+    lands in real pages.
     """
     t = tokens.shape[1]
     dev = tokens.device
+    true_len = _device_scalar(true_len, dev)
     x = embed(params, tokens, cfg)                                # [1,T,D]
     pos = torch.arange(t, device=dev)
     cos, sin = rope_freqs(cfg, pos[None, :])
@@ -462,32 +480,33 @@ def paged_prefill(params, kv, page_table, tokens, true_len: int,
         return dense_attention(q, k, v, n_rep, cfg.head_dim ** -0.5, causal)
 
     x = run_layers(params, x, cos, sin, cfg, attend)
-    return _logits(x[:, max(true_len - 1, 0)], params)[0]
+    return _logits(_last_row(x, true_len - 1), params)[0]
 
 
-def paged_prefill_chunk(params, kv, page_table, tokens, start: int,
-                        true_len: int, cfg: LlamaConfig, page_size: int,
+def paged_prefill_chunk(params, kv, page_table, tokens, start, true_len,
+                        cfg: LlamaConfig, page_size: int,
                         attn_backend: str = "gather"):
     """One CHUNK of a long prompt's prefill; updates ``kv`` in place.
 
     tokens: [1, C] the chunk (bucket-padded); start: position of the
-    chunk's first token; true_len: total prompt length. The chunk's
-    queries attend to every cached position < start (earlier chunks or a
-    shared cached prefix, read back through the page pool) plus causally
-    within the chunk. Returns last-token logits [vocab] (fp32) —
-    meaningful only on the final chunk.
+    chunk's first token; true_len: total prompt length (each a Python int
+    or a [1] integer tensor on the pool's device). The chunk's queries
+    attend to every cached position < start (earlier chunks or a shared
+    cached prefix, read back through the page pool) plus causally within
+    the chunk. Returns last-token logits [vocab] (fp32) — meaningful only
+    on the final chunk.
     """
     c = tokens.shape[1]
     dev = tokens.device
+    base_t = _device_scalar(start, dev)
+    limit_t = _device_scalar(true_len, dev)
     x = embed(params, tokens, cfg)                                # [1,C,D]
-    pos = start + torch.arange(c, device=dev)                     # [C]
+    pos = base_t + torch.arange(c, device=dev)                    # [C]
     cos, sin = rope_freqs(cfg, pos[None, :])
-    page_idx = torch.where(pos < true_len,
+    page_idx = torch.where(pos < limit_t,
                            _page_index(page_table[None], pos[None],
                                        page_size)[0], 0)
     offset = pos % page_size
-    base_t = torch.full((1,), start, dtype=torch.int32, device=dev)
-    limit_t = torch.full((1,), true_len, dtype=torch.int32, device=dev)
     sm = cfg.head_dim ** -0.5
 
     def attend(l, q, k, v):
@@ -505,8 +524,7 @@ def paged_prefill_chunk(params, kv, page_table, tokens, start: int,
 
     x = run_layers(params, x, cos, sin, cfg, attend)
     # last REAL token's position relative to this chunk's start
-    rel = min(max(true_len - 1 - start, 0), c - 1)
-    return _logits(x[:, rel], params)[0]
+    return _logits(_last_row(x, limit_t - 1 - base_t), params)[0]
 
 
 def sample_tokens(logits, generator: torch.Generator, temperature,
