@@ -103,6 +103,29 @@ Phases, each of which raises on failure (nothing is caught and carried on):
    and with int8 (error within half the group's scale / 127). Prints the
    spill and restore times per page, the codec's, TTFT cold, resident and
    restored, the codec ratio and the tier's bytes;
+11. request deadlines at full width (after phase 10, before phase 9;
+   llama3_1b at the serve settings, CUDA graphs on, phase 4's weights):
+   (a) in fp32, one wave of 24 prompts of 200-400 fresh tokens x 16
+   tokens, 8 of them (every third) submitted under a deadline already
+   past: the 8 must end with "deadline exceeded" and no token,
+   ``shed_expired`` must be 8, the prefill and chunk counts those of the
+   16 alone, whose greedy tokens on a fresh engine must equal the wave's,
+   and the free pages (with the cached prefix pages) must come back;
+   (b) driven by hand (``pump``, the loop not started): a ~900-token
+   fp32 prompt whose deadline passes after its first chunk (a chunk
+   graph replay) must give back its slot and pages at the next pass and
+   its waiter "deadline exceeded" at once, and the same prompt served
+   again on that engine a fresh engine's tokens; at phase 10's tier
+   setup (bf16, lossless), A's deadline passes while it restores: its
+   stream is aborted, slot and pages come back, and A served again
+   still restores 7 pages and gives the resident run's tokens; (c) in
+   bf16, 96 requests of 256 fresh tokens x 64 tokens at once onto the 32
+   slots, without deadlines (D = their latency p50) and each under
+   submit + D and under submit + 3D/4 (which sheds the third admission
+   batch): finished, late, shed, dropped, goodput (the output tokens of
+   requests finished by their deadline per second of wall), their TTFT
+   p50 / p99 and how long a shed waiter waits past its deadline; only
+   invariants are asserted there;
 9. phase 4b's bf16 wave once more with spec on and off, each with CUDA
    graphs on and off, each under the profiler: device busy share,
    launches, host calls (``cudaLaunchKernel`` and ``cudaGraphLaunch``, each
@@ -113,7 +136,8 @@ Phases, each of which raises on failure (nothing is caught and carried on):
 
 Prints numbers on earlier lines, then a ``{"kernels": [...]}`` line (each
 row names the CUDA kernel it timed under ``kernel``; ``tier_launches`` is
-its count in phase 10's lossless tier runs), then the card's name
+its count in phase 10's lossless tier runs, ``deadline_launches`` in phase
+11, its engines' warmups included), then the card's name
 and power limit, and as its last line
 ``{"ok": true, "device": {...}}``. Without a CUDA device it exits non-zero
 and prints no result.
@@ -1875,6 +1899,15 @@ def _bits(t):
     return t.view(torch.int16) if t.element_size() == 2 else t.view(torch.int32)
 
 
+def tier_prompts() -> dict:
+    """Prompts A, B and C of phase 10: 1,000 tokens each with BOS (7 full
+    pages of 128), sharing no full page."""
+    words = ("alpha bravo charlie delta echo foxtrot golf hotel india "
+             "juliet kilo lima mike november oscar papa quebec romeo ")
+    return {name: (f"{name}: " + words * 10)[:999]
+            for name in ("A", "B", "C")}
+
+
 def tier_arm(card: str, params, codec: str):
     """One engine with the tier on (CUDA graphs on) serves prompt A (~1000
     tokens, 7 full pages) cold and again while its prefix is resident; two
@@ -1886,10 +1919,7 @@ def tier_arm(card: str, params, codec: str):
     max_tokens = 32
     cfg = serve_config(max_tokens=max_tokens, kv_tier_enabled=True,
                        kv_tier_codec=codec, prefix_cache_max_pages=8)
-    words = ("alpha bravo charlie delta echo foxtrot golf hotel india "
-             "juliet kilo lima mike november oscar papa quebec romeo ")
-    prompts = {name: (f"{name}: " + words * 10)[:999]     # + BOS = 1000
-               for name in ("A", "B", "C")}
+    prompts = tier_prompts()
     srv = LLMServer(cfg, params=params, rng_seed=0)
     eng = srv.engine
     toks_a = eng.tokenizer.encode(prompts["A"])
@@ -2211,6 +2241,380 @@ def phase_tier(card: str):
     return {k: n + t[3][k] for k, n in a["total"].items()}
 
 
+# ---------------------------------------------------------------------------
+# phase 11: request deadlines at full width
+# ---------------------------------------------------------------------------
+
+def fresh_tokens(rng, n: int) -> list[int]:
+    """``n`` byte tokens from ``rng``: such prompts share no full page, so
+    no prefix-cache hit joins them."""
+    return [int(t) for t in rng.randint(0, 256, n)]
+
+
+def pump(eng, pred, timeout: float = 120.0) -> None:
+    """Engine loop passes on this thread, the loop not started, until
+    ``pred()``: as the CPU tests drive it, so that no pass races an edit
+    of a request's deadline."""
+    end = time.monotonic() + timeout
+    with torch.no_grad():
+        while not pred():
+            if time.monotonic() > end:
+                raise AssertionError("the engine made no progress")
+            eng._admit()
+            if eng._kv_tier_on:
+                eng._restore_steps()
+            eng._prefill_chunks()
+            eng._step()
+            while eng._pending:
+                eng._harvest_one()
+            if eng._kv_tier_on:
+                eng._kv_tier_flush()
+            time.sleep(0.001)
+
+
+def pumped(eng, prompt, **kw) -> dict:
+    """Serve ``prompt`` greedily by ``pump``; its result."""
+    rid = eng.submit(prompt, temperature=0.0, **kw)
+    pump(eng, lambda: eng._requests[rid].done)
+    return eng.result(rid, timeout=30.0)
+
+
+def shed_wave(cfg, params, prompts, expired=()) -> tuple:
+    """A fresh engine over ``params``: every prompt submitted before the
+    loop starts (those at the indices ``expired`` under a deadline 1 s
+    past), then each result. Returns the results, the engine's stats and
+    its free pages (with the cached prefix pages) before and after."""
+    from ray_torch.core import deadline
+    from ray_torch.serve.llm import LLMEngine
+
+    eng = LLMEngine(cfg, params=params, rng_seed=0)
+    try:
+        base = eng.allocator.available()
+        rids = []
+        for i, prompt in enumerate(prompts):
+            with deadline.scope(time.time() - 1.0 if i in expired else None):
+                rids.append(eng.submit(prompt, temperature=0.0))
+        eng.start()
+        outs = [eng.result(r, timeout=300.0) for r in rids]
+        stats = eng.engine_stats()
+        free = eng.allocator.available()
+    finally:
+        eng.shutdown()
+    return outs, stats, base, free
+
+
+def deadline_shedding(card: str, cfg, params):
+    """Phase 11 a: one wave of 24 prompts of 200-400 fresh tokens, 8 of
+    them (every third) already past their deadline at submit, then the 16
+    others alone on a fresh engine. The 8 end with "deadline exceeded"
+    and no token, without a prefill; the 16's greedy tokens are those of
+    the wave without them; the free pages come back."""
+    rng = np.random.RandomState(11)
+    prompts = [fresh_tokens(rng, rng.randint(200, 401)) for _ in range(24)]
+    expired = set(range(2, 24, 3))
+    t0 = time.perf_counter()
+    mixed, stats, base, free = shed_wave(cfg, params, prompts, expired)
+    survivors = [p for i, p in enumerate(prompts) if i not in expired]
+    alone, alone_stats, base2, free2 = shed_wave(cfg, params, survivors)
+    shed = [mixed[i] for i in sorted(expired)]
+    kept = [o for i, o in enumerate(mixed) if i not in expired]
+    same = [a["tokens"] == b["tokens"] for a, b in zip(kept, alone)]
+    log(f"  (a) fp32, 24 requests x 16 tokens, 8 past their deadline: shed "
+        f"{sum(o['error'] == 'deadline exceeded' for o in shed)} with "
+        f"{sum(len(o['tokens']) for o in shed)} tokens, shed_expired "
+        f"{stats['shed_expired']}; prefills {stats['prefills']} / "
+        f"{alone_stats['prefills']} (the 16 alone), chunks "
+        f"{stats['attn_chunk_dispatches']} / "
+        f"{alone_stats['attn_chunk_dispatches']}; survivors' greedy tokens "
+        f"identical to the 16 alone: {sum(same)}/16; free pages {base} -> "
+        f"{free} ({base2} -> {free2} alone); "
+        f"{time.perf_counter() - t0:.1f} s [{card}]")
+    if not all(o["error"] == "deadline exceeded" and o["tokens"] == []
+               and o["queue_wait_s"] is None for o in shed):
+        raise AssertionError(f"expired requests: {shed}")
+    if not (stats["shed_expired"] == 8 and alone_stats["shed_expired"] == 0
+            and stats["prefills"] == alone_stats["prefills"] == 16
+            and stats["attn_chunk_dispatches"]
+            == alone_stats["attn_chunk_dispatches"]):
+        raise AssertionError(f"shedding: {stats} against {alone_stats}")
+    if not (all(o["error"] is None for o in kept + alone) and all(same)
+            and free == base and free2 == base2):
+        raise AssertionError("survivors' tokens or free pages differ")
+
+
+def drop_mid_chunk(card: str, cfg, params):
+    """Phase 11 b, mid-chunk, driven by hand: a ~900-token prompt's
+    deadline passes after its first chunk (a chunk graph replay); the
+    next pass gives back its slot and pages, and its waiter gets
+    "deadline exceeded" at once. The same prompt with no deadline on the
+    same engine (whose next owner of those pages it is) must then give a
+    fresh engine's fp32 tokens."""
+    from ray_torch.core import deadline
+    from ray_torch.serve.llm import LLMEngine
+
+    prompt = fresh_tokens(np.random.RandomState(12), 900)
+    eng = LLMEngine(cfg, params=params, rng_seed=0)
+    try:
+        base, slots = eng.allocator.available(), len(eng.free_slots)
+        with deadline.scope(time.time() + 3600.0):
+            rid = eng.submit(prompt, temperature=0.0)
+        req = eng._requests[rid]
+        with torch.no_grad():
+            eng._admit()
+            eng._prefill_chunks()
+        first = (eng._prefilling == [req]
+                 and req.prefill_pos == cfg.prefill_chunk
+                 and ("chunk", cfg.prefill_chunk) in eng._prompt_programs
+                 and eng._graphs.replays == 1)
+        req.deadline = time.time() - 1.0
+        with torch.no_grad():
+            eng._prefill_chunks()
+        t0 = time.perf_counter()
+        out = eng.result(rid, timeout=30.0)
+        wait_ms = 1e3 * (time.perf_counter() - t0)
+        freed = (eng._prefilling == [] and len(eng.free_slots) == slots
+                 and eng.allocator.available() == base and req.pages == [])
+        stats = eng.engine_stats()
+        again = pumped(eng, prompt)
+    finally:
+        eng.shutdown()
+    fresh = LLMEngine(cfg, params=params, rng_seed=0)
+    try:
+        want = pumped(fresh, prompt)
+    finally:
+        fresh.shutdown()
+    log(f"  (b) fp32 mid-chunk: after chunk 1 of 2 (a chunk graph replay: "
+        f"{first}), deadline passed: slot and pages back {freed}, "
+        f"shed_expired {stats['shed_expired']}, chunks "
+        f"{stats['attn_chunk_dispatches']}, result() '{out['error']}' in "
+        f"{wait_ms:.3f} ms; the prompt again on the same engine == a fresh "
+        f"engine's tokens: {again['tokens'] == want['tokens']} "
+        f"({len(want['tokens'])} tokens) [{card}]")
+    if not (first and freed and stats["shed_expired"] == 1
+            and stats["attn_chunk_dispatches"] == 1
+            and out["error"] == "deadline exceeded" and out["tokens"] == []
+            and wait_ms < 100.0):
+        raise AssertionError(f"mid-chunk drop: first chunk {first}, freed "
+                             f"{freed}, {out['error']} in {wait_ms} ms, "
+                             f"{stats}")
+    if not (again["error"] is None and want["error"] is None
+            and again["tokens"] == want["tokens"]):
+        raise AssertionError("the next owner of a dropped request's pages "
+                             "differs from a fresh engine")
+
+
+def drop_mid_restore(card: str, params):
+    """Phase 11 b, mid-restore, driven by hand, at phase 10's tier setup
+    (bf16, lossless, at most 8 cached pages): A cold, resident, spilled by
+    B and C; A again, whose deadline passes while it sits in _restoring:
+    the next pass aborts its stream and gives back its slot and pages. A
+    with no deadline then still restores its 7 pages and gives the
+    resident run's tokens."""
+    from ray_torch.core import deadline
+    from ray_torch.serve.llm import LLMEngine
+
+    cfg = serve_config(max_tokens=32, kv_tier_enabled=True,
+                       kv_tier_codec="lossless", prefix_cache_max_pages=8)
+    prompts = tier_prompts()
+    eng = LLMEngine(cfg, params=params, rng_seed=0)
+    try:
+        toks_a = eng.tokenizer.encode(prompts["A"])
+        runs = {name: pumped(eng, prompts[p]) for name, p in (
+            ("A cold", "A"), ("A resident", "A"), ("B", "B"), ("C", "C"))}
+        eng._kv_tier_flush(wait=True)
+        spilled = all(p is None and d.hex() in eng._kv_tier._by_digest
+                      for d, p in _chain(eng, toks_a))
+        base, slots = eng.allocator.available(), len(eng.free_slots)
+        shed0 = eng.stats["shed_expired"]
+        with deadline.scope(time.time() + 3600.0):
+            rid = eng.submit(prompts["A"], temperature=0.0)
+        req = eng._requests[rid]
+        with torch.no_grad():
+            admitted = eng._admit()
+        stream = req.restore_stream
+        parked = (admitted == 1 and eng._restoring == [req]
+                  and stream is not None)
+        req.deadline = time.time() - 1.0
+        with torch.no_grad():
+            eng._restore_steps()
+        out = eng.result(rid, timeout=30.0)
+        freed = (eng._restoring == [] and eng._prefilling == []
+                 and len(eng.free_slots) == slots
+                 and eng.allocator.available() == base
+                 and req.restore_stream is None and stream._aborted)
+        shed = eng.stats["shed_expired"] - shed0
+        closed = _wait_for(lambda: eng._kv_tier.stats()["streams"] == 0,
+                           30.0)
+        restored_before = eng.stats["restored_pages"]
+        rid = eng.submit(prompts["A"], temperature=0.0)
+        again_req = eng._requests[rid]
+        pump(eng, lambda: again_req.done)
+        again = eng.result(rid, timeout=30.0)
+        restored = eng.stats["restored_pages"] - restored_before
+    finally:
+        eng.shutdown()
+    same = again["tokens"] == runs["A resident"]["tokens"]
+    log(f"  (b) bf16 mid-restore: A spilled {spilled}, parked in _restoring "
+        f"{parked}; deadline passed: stream aborted, slot and pages back "
+        f"{freed}, shed_expired +{shed}, result() '{out['error']}', streams "
+        f"closed {closed}; A again restored {again_req.restore_pages} pages "
+        f"(restored_pages +{restored}), tokens == resident {same} [{card}]")
+    if not (spilled and parked and freed and shed == 1 and closed
+            and out["error"] == "deadline exceeded" and out["tokens"] == []):
+        raise AssertionError(f"mid-restore drop: spilled {spilled}, parked "
+                             f"{parked}, freed {freed}, shed {shed}, "
+                             f"{out['error']}")
+    if not (again["error"] is None and again_req.restore_pages == 7
+            and restored == 7 and same):
+        raise AssertionError(f"A after the drop: {again['error']}, restored "
+                             f"{again_req.restore_pages}, tokens == "
+                             f"resident {same}")
+
+
+def overload_run(cfg, params, prompts, budget=None) -> dict:
+    """A fresh engine (started) takes every prompt at once, each under a
+    deadline of its submit + ``budget`` seconds when one is given; one
+    waiter thread a request, outside the deadline (a slotted request
+    finishes late, as in the reference: it is not preempted)."""
+    from ray_torch.core import deadline
+    from ray_torch.serve.llm import LLMEngine
+
+    eng = LLMEngine(cfg, params=params, rng_seed=0)
+    eng.start()
+    try:
+        base = eng.allocator.available()
+        subs = []
+        t0 = time.perf_counter()
+        for prompt in prompts:
+            sub = time.time()
+            with deadline.scope(None if budget is None else sub + budget):
+                subs.append((eng.submit(prompt, temperature=0.0), sub))
+
+        def wait(rid):
+            return eng.result(rid, timeout=600.0), time.time()
+
+        with concurrent.futures.ThreadPoolExecutor(len(prompts)) as pool:
+            done = list(pool.map(wait, [rid for rid, _ in subs]))
+        wall = time.perf_counter() - t0
+        stats = eng.engine_stats()
+        free = eng.allocator.available()
+    finally:
+        eng.shutdown()
+    return {"outs": [o for o, _ in done], "returned": [t for _, t in done],
+            "submitted": [s for _, s in subs], "wall": wall,
+            "stats": stats, "base": base, "free": free}
+
+
+def overload_line(name, run, budget, card) -> None:
+    """One run's counts, goodput (the output tokens of requests finished
+    on time, by submit + ``budget``, per second of wall) and the on-time
+    requests' TTFT."""
+    outs = run["outs"]
+    late = [o for o in outs if o["error"] is None
+            and o["latency_s"] > budget]
+    ok = [o for o in outs if o["error"] is None
+          and o["latency_s"] <= budget]
+    gone = [(o, t - (s + budget)) for o, t, s in zip(
+        outs, run["returned"], run["submitted"]) if o["error"]]
+    past = [dt for o, dt in gone if o["queue_wait_s"] is None]
+    ttft = [1e3 * o["ttft_s"] for o in ok] or [float("nan")]
+    tokens = sum(len(o["tokens"]) for o in ok)
+    log(f"  (c) {name}: finished {len(ok) + len(late)} ({len(ok)} on time, "
+        f"{len(late)} late), shed while waiting {len(past)}, dropped "
+        f"mid-prefill {len(gone) - len(past)}; goodput "
+        f"{tokens / run['wall']:.1f} output tokens/s ({tokens} tokens in "
+        f"{run['wall']:.3f} s; every finished request's "
+        f"{sum(len(o['tokens']) for o in outs) / run['wall']:.1f}); TTFT on "
+        f"time p50 {np.percentile(ttft, 50):.1f} ms, p99 "
+        f"{np.percentile(ttft, 99):.1f} ms"
+        + (f"; a shed waiter's return past its deadline p50 "
+           f"{1e3 * statistics.median(past):.3f} ms, max "
+           f"{1e3 * max(past):.3f} ms" if past else "")
+        + f" [{card}]")
+
+
+def deadline_overload(card: str, params):
+    """Phase 11 c: 96 requests of 256 fresh tokens, 64 tokens each, at
+    once onto 32 slots (bf16): without deadlines (D = their latency p50),
+    then each under submit + D, then under submit + 3D/4. The requests
+    are admitted in three batches of 32, each when the one before ends,
+    at about 0, D/2 and D: with D a batch's admission falls on its
+    deadline, with 3D/4 the third batch still waits at its deadline. Only
+    invariants are asserted: every request ends with its tokens or
+    "deadline exceeded", which ``shed_expired`` counts, and the free
+    pages come back."""
+    cfg = serve_config(max_tokens=64)
+    rng = np.random.RandomState(13)
+    prompts = [fresh_tokens(rng, 256) for _ in range(96)]
+    free_run = overload_run(cfg, params, prompts)
+    budget = statistics.median(o["latency_s"] for o in free_run["outs"])
+    runs = {"no deadlines": free_run,
+            "submit + D": overload_run(cfg, params, prompts, budget),
+            "submit + 3D/4": overload_run(cfg, params, prompts,
+                                          0.75 * budget)}
+    log(f"  (c) bf16 overload: 96 requests of 256 tokens x 64 tokens onto "
+        f"{cfg.max_batch_size} slots; D = latency p50 without deadlines = "
+        f"{1e3 * budget:.1f} ms [{card}]")
+    overload_line("no deadlines, counted by D", free_run, budget, card)
+    overload_line("no deadlines, counted by 3D/4", free_run, 0.75 * budget,
+                  card)
+    overload_line("deadline submit + D", runs["submit + D"], budget, card)
+    overload_line("deadline submit + 3D/4", runs["submit + 3D/4"],
+                  0.75 * budget, card)
+    for name, run in runs.items():
+        errors = [o["error"] for o in run["outs"]]
+        if not (all(e in (None, "deadline exceeded") for e in errors)
+                and all(o["tokens"] == [] for o in run["outs"]
+                        if o["error"])
+                and run["stats"]["shed_expired"]
+                == errors.count("deadline exceeded")
+                and run["free"] == run["base"]):
+            raise AssertionError(f"overload, {name}: errors "
+                                 f"{set(errors)}, shed_expired "
+                                 f"{run['stats']['shed_expired']}, free "
+                                 f"pages {run['base']} -> {run['free']}")
+    if free_run["stats"]["shed_expired"]:
+        raise AssertionError("requests without a deadline were shed")
+
+
+def phase_deadlines(card: str):
+    """Phase 11: request deadlines at full width (llama3_1b at the serve
+    settings, CUDA graphs on, phase 4's weights from seed 0): (a) shedding
+    in fp32, (b) drops mid-chunk (fp32) and mid-restore (bf16, tier on),
+    driven by hand, (c) an overload wave in bf16 with and without
+    deadlines. Returns the phase's launches by kernel, every engine's
+    warmup and first-use captures included."""
+    from ray_torch.models import llama
+    from ray_torch.ops import paged_attention as pa
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    params = llama.init_params(serve_config().model_config, gen, "cuda")
+    fp32 = _cast(params, torch.float32)
+    cfg32 = serve_config(max_tokens=16, model_config=llama.llama3_1b(
+        max_seq_len=2048, dtype=torch.float32))
+    for name in pa.launches:
+        pa.launches[name] = 0
+    t0 = time.perf_counter()
+    deadline_shedding(card, cfg32, fp32)
+    t1 = time.perf_counter()
+    drop_mid_chunk(card, cfg32, fp32)
+    del fp32
+    torch.cuda.empty_cache()
+    t2 = time.perf_counter()
+    drop_mid_restore(card, params)
+    t3 = time.perf_counter()
+    deadline_overload(card, params)
+    launches = dict(pa.launches)
+    log(f"  phase 11 launches (from its first engine's warmup) {launches}; "
+        f"(a) {t1 - t0:.1f} s, (b) mid-chunk {t2 - t1:.1f} s, mid-restore "
+        f"{t3 - t2:.1f} s, (c) {time.perf_counter() - t3:.1f} s [{card}]")
+    if not all(launches.values()):
+        raise AssertionError(f"phase 11 launched a paged kernel no time: "
+                             f"{launches}")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
@@ -2306,6 +2710,15 @@ def main() -> int:
     for k in kernels:         # the same kernels' counts on the tier's path
         k["tier_launches"] = tier_launches[k["kernel"]]
     log(f"  phase 10: {time.perf_counter() - t0:.1f} s")
+    torch.cuda.empty_cache()
+
+    log("[11] request deadlines at full width: shedding, drops mid-chunk "
+        "and mid-restore, an overload wave")
+    t0 = time.perf_counter()
+    deadline_launches = phase_deadlines(card)
+    for k in kernels:         # the same kernels' counts on phase 11's path
+        k["deadline_launches"] = deadline_launches[k["kernel"]]
+    log(f"  phase 11: {time.perf_counter() - t0:.1f} s")
     torch.cuda.empty_cache()
 
     log("[9] where a speculative serving wave's time goes")

@@ -55,14 +55,20 @@ How the reference's JAX machinery maps onto PyTorch:
   (``_restore_steps``) and is scattered IN PLACE into its pool pages
   (``index_copy_``), where the reference rebinds a donated pool: the
   captured graphs read the pool by address. The suffix is then
-  chunk-prefilled from the restored frontier.
+  chunk-prefilled from the restored frontier;
+- request deadlines (``ray_torch.core.deadline``, "The Tail at Scale"):
+  ``submit`` captures the caller's ambient deadline, ``result`` bounds its
+  wait by it, ``_admit`` sheds waiting requests whose deadline has passed
+  (no slot, no pages, no prefill) and a request whose deadline passes
+  mid chunked prefill or mid restore is dropped at the next pass, its
+  slot and pages given back (``stats["shed_expired"]`` counts both). A
+  slotted, decoding request is not preempted.
 
 This slice leaves out, for later slices: the tier's warm start, prefetch
 hints and eager spill of live chains, disaggregation, failover
-continuations, tensor parallelism, request deadlines, and the
-flight-recorder / tracing / attribution hooks. Only the fields of
-``_NOT_PORTED`` (tensor parallelism and disaggregation) raise when set;
-the others have no switch in the port.
+continuations, tensor parallelism, and the flight-recorder / tracing /
+attribution hooks. Only the fields of ``_NOT_PORTED`` (tensor parallelism
+and disaggregation) raise when set; the others have no switch in the port.
 
 Threading model: one loop thread drives the device. ``submit()`` /
 ``drain()`` / ``result()`` / ``cancel()`` are thread-safe.
@@ -83,6 +89,7 @@ import numpy as np
 import torch
 
 from ray_torch._device import resolve_device
+from ray_torch.core import deadline as request_deadline
 from ray_torch.models import llama
 from ray_torch.observability import profiling as profiling_mod
 from ray_torch.ops import _build
@@ -155,6 +162,10 @@ class _Request:
     itl_gaps: list[float] = field(default_factory=list)
     finished_at: Optional[float] = None
     done_event: threading.Event = field(default_factory=threading.Event)
+    # end-to-end request deadline (core/deadline.py, epoch seconds),
+    # captured at submit: the admission loop sheds waiting requests whose
+    # deadline passed instead of prefilling answers nobody will read
+    deadline: Optional[float] = None
 
 
 class _Fetch:
@@ -379,7 +390,7 @@ class LLMEngine:
         self._gen.manual_seed(rng_seed + 1)
         self._loop_thread: Optional[threading.Thread] = None
         self.stats = {"steps": 0, "prefills": 0, "tokens_out": 0,
-                      "requests": 0, "compile_s": 0.0,
+                      "requests": 0, "shed_expired": 0, "compile_s": 0.0,
                       "prefix_hits": 0, "prefix_misses": 0,
                       "prefix_hit_tokens": 0,
                       "spilled_pages": 0, "restored_pages": 0,
@@ -726,7 +737,8 @@ class LLMEngine:
             temperature=(self.cfg.temperature if temperature is None
                          else temperature),
             top_k=self.cfg.top_k if top_k is None else top_k,
-            stop_token=getattr(self.tokenizer, "eos_token_id", None))
+            stop_token=getattr(self.tokenizer, "eos_token_id", None),
+            deadline=request_deadline.current())
         if req.top_k != self.cfg.top_k:
             # all sampling uses the ENGINE's top_k, as in the reference
             logger.warning(
@@ -792,16 +804,25 @@ class LLMEngine:
 
     def result(self, request_id: str, timeout: Optional[float] = None) -> dict:
         """Block until the request completes; returns the full completion.
-        On timeout (default 120 s) the request is CANCELLED."""
+
+        The wait is bounded by min(timeout, remaining request deadline);
+        with neither, the 120 s guard still applies (a hung engine must not
+        pin the caller forever). On expiry the request is CANCELLED — its
+        slot/pages free at the next recorded token instead of decoding to
+        max_tokens for nobody."""
         if timeout is None:
             timeout = 120.0
+        timeout = request_deadline.bound(timeout)
         with self._lock:
             req = self._requests.get(request_id)
         if req is None:
             return {"text": "", "tokens": [], "error": "unknown request"}
         if not req.done_event.wait(timeout):
             self.cancel(request_id)
-            return {"text": "", "tokens": [], "error": "timeout"}
+            expired = (req.deadline is not None
+                       and time.time() >= req.deadline)
+            return {"text": "", "tokens": [],
+                    "error": "deadline exceeded" if expired else "timeout"}
         with self._lock:
             self._requests.pop(request_id, None)
         ttft = (req.first_token_at - req.submitted_at
@@ -975,8 +996,32 @@ class LLMEngine:
             w *= 2
         return min(w, self.cfg.max_batch_size)
 
+    def _shed_expired_waiting(self) -> None:
+        """Drop WAITING requests whose deadline passed: no slot, no pages,
+        no prefill — the caller stopped listening ("The Tail at Scale").
+        Slotted requests are not preempted; cancel() handles those."""
+        now = time.time()
+        shed: list[_Request] = []
+        with self._lock:
+            keep = []
+            for req in self._waiting:
+                if req.deadline is not None and now >= req.deadline:
+                    shed.append(req)
+                else:
+                    keep.append(req)
+            if shed:
+                self._waiting = keep
+                self.stats["shed_expired"] += len(shed)
+                for req in shed:
+                    req.error = "deadline exceeded"
+                    req.done = True
+                    req.finished_at = time.monotonic()
+        for req in shed:
+            req.done_event.set()
+
     def _admit(self) -> int:
         """Move waiting requests into free slots (prefill each)."""
+        self._shed_expired_waiting()
         admitted = 0
         while True:
             with self._lock:
@@ -1156,10 +1201,12 @@ class LLMEngine:
         if not active:
             return 0
         progressed = 0
+        now_w = time.time()
         budget_s = max(self.cfg.kv_tier_chunk_timeout_s, 0.1)
         for req in active:
             stream = req.restore_stream
-            if req.prefill_cancelled:
+            if req.prefill_cancelled or (req.deadline is not None
+                                         and now_w >= req.deadline):
                 self._abort_prefilling(req)
                 progressed += 1
                 continue
@@ -1295,8 +1342,10 @@ class LLMEngine:
         cached KV."""
         with self._lock:
             active = list(self._prefilling)
+        now = time.time()
         for req in active:
-            if req.prefill_cancelled:
+            if req.prefill_cancelled or (req.deadline is not None
+                                         and now >= req.deadline):
                 self._abort_prefilling(req)
                 continue
             plen = len(req.prompt_tokens)
@@ -1338,10 +1387,13 @@ class LLMEngine:
         return len(active)
 
     def _abort_prefilling(self, req: _Request) -> None:
-        """Release a cancelled mid-chunked-prefill (or mid-restore)
-        request NOW: slot, pages and tracking. Loop thread only: dispatched
-        chunks and injects may still write these pages, but the stream is
-        ordered, so any later prefill reusing them runs after."""
+        """Release a mid-chunked-prefill (or mid-restore) request NOW,
+        cancelled or past its deadline: slot, pages and tracking. Loop
+        thread only: dispatched chunks and injects may still write these
+        pages, but the stream is ordered, so any later prefill reusing
+        them runs after. A request that was not cancelled has expired: it
+        is counted and kept, so that result() / drain() report it."""
+        expired = not req.abandoned
         if req.restore_stream is not None:
             # cut the stream first: its worker must stop landing chunks
             # for pages we are about to hand back to the pool
@@ -1357,7 +1409,11 @@ class LLMEngine:
                 req.slot = -1
             req.done = True
             req.finished_at = time.monotonic()
-            self._requests.pop(req.request_id, None)
+            if expired:
+                req.error = "deadline exceeded"
+                self.stats["shed_expired"] += 1
+            else:
+                self._requests.pop(req.request_id, None)
         self.allocator.free(req.pages)
         req.pages = []
         req.done_event.set()
