@@ -47,7 +47,13 @@ Phases, each of which raises on failure (nothing is caught and carried on):
    warmup seconds, the prompt captures by kind with each first use's ms,
    the prefill and chunk phases' host ms, the graphs' pool bytes and how
    long one replay holds the host; how many requests' tokens the arms
-   share;
+   share. Attribution, per arm: every completion's ``ray_tpu.stages``
+   must be ``queue``, ``prefill``, ``decode``, each starting where the
+   one before ends, prefill's end the TTFT and decode's the latency
+   (within 1 ms), prefilled tokens the prompt's less the cached ones, and
+   wave 2's prefix hit must have cached the full pages it shares with
+   wave 1; ``aggregate_report``'s per-stage p50 / p99 and the slowest
+   decile's dominant stage are printed;
 4b. speculative decoding on that path: ``LLMServer`` with
    ``spec_decode_enabled`` on and off, each with CUDA graphs on and off,
    then off again (the control), on phase 4's weights, streams one wave of
@@ -100,9 +106,14 @@ Phases, each of which raises on failure (nothing is caught and carried on):
    stored lossless (int8 quantizes numpy floating types only, as the
    reference's codec does); llama_tiny fp32 tier runs through the
    kernel against the gather path (tokens identical, cold and restored)
-   and with int8 (error within half the group's scale / 127). Prints the
-   spill and restore times per page, the codec's, TTFT cold, resident and
-   restored, the codec ratio and the tier's bytes;
+   and with int8 (error within half the group's scale / 127). Attribution:
+   only the restored run has a ``restore`` stage, whose restored tokens
+   and bytes are 7 pages' (bytes from the config), whose ``bytes_wire``
+   is the sum of the payloads the store handed out, whose ``overlap_ms``
+   is ``restore_ms`` less the loop-blocked ms and which is not partial.
+   Prints the spill and restore times per page, the codec's, TTFT cold,
+   resident and restored beside the restored run's stage split, the codec
+   ratio and the tier's bytes;
 11. request deadlines at full width (after phase 10, before phase 9;
    llama3_1b at the serve settings, CUDA graphs on, phase 4's weights):
    (a) in fp32, one wave of 24 prompts of 200-400 fresh tokens x 16
@@ -125,7 +136,12 @@ Phases, each of which raises on failure (nothing is caught and carried on):
    batch): finished, late, shed, dropped, goodput (the output tokens of
    requests finished by their deadline per second of wall), their TTFT
    p50 / p99 and how long a shed waiter waits past its deadline; only
-   invariants are asserted there;
+   invariants are asserted there. Attribution: (a)'s shed requests have
+   a lone ``queue`` stage (not admitted), its survivors whole waterfalls;
+   (b)'s dropped requests the stages ``engine_stages`` gives for their
+   fields (``queue``, admitted, and ``restore`` if pages had landed; no
+   ``decode``); (c) prints each run's per-stage p50 / p99 and the
+   dominant stage of its slowest decile;
 9. phase 4b's bf16 wave once more with spec on and off, each with CUDA
    graphs on and off, each under the profiler: device busy share,
    launches, host calls (``cudaLaunchKernel`` and ``cudaGraphLaunch``, each
@@ -147,6 +163,7 @@ from __future__ import annotations
 
 import asyncio
 import concurrent.futures
+import contextlib
 import dataclasses
 import functools
 import json
@@ -757,6 +774,67 @@ def replay_hold(eng, sigs, reps: int = 5) -> dict:
     return out
 
 
+def stage_names(out) -> list[str]:
+    return [s["stage"] for s in out.get("stages") or []]
+
+
+def check_waterfall(name, out, prompt_tokens: int, restored: bool = False,
+                    tol_s: float = 1e-3) -> dict:
+    """A finished request's stages (``result()``'s or the server's
+    ``ray_tpu`` dict, with ``ttft_s`` and ``latency_s``): ``queue``,
+    ``restore`` when ``restored``, ``prefill``, ``decode``, each starting
+    where the one before ends; prefill's end minus the queue's start is
+    the TTFT and decode's end the latency, within ``tol_s``; prefilled
+    tokens are the prompt's less the cached ones. Returns the stages by
+    name."""
+    names = stage_names(out)
+    want = ["queue"] + (["restore"] if restored else []) \
+        + ["prefill", "decode"]
+    by = {s["stage"]: s for s in out.get("stages") or []}
+    if names != want:
+        raise AssertionError(f"{name}: stages {names}, not {want}")
+    chain = [by[n] for n in want]
+    gaps = [b["start"] - a["end"] for a, b in zip(chain, chain[1:])]
+    q, p, d = by["queue"], by["prefill"], by["decode"]
+    ttft = p["end"] - q["start"] - out["ttft_s"]
+    lat = d["end"] - q["start"] - out["latency_s"]
+    cached = p["attrs"]["cached_tokens"]
+    if any(gaps) or abs(ttft) > tol_s or abs(lat) > tol_s \
+            or q["attrs"] != {"admitted": True} \
+            or p["attrs"]["prefilled_tokens"] != prompt_tokens - cached:
+        raise AssertionError(f"{name}: stages {out['stages']} against TTFT "
+                             f"{out['ttft_s']} s, latency "
+                             f"{out['latency_s']} s, {prompt_tokens} "
+                             f"prompt tokens")
+    return by
+
+
+def stage_report(outs) -> dict:
+    """``aggregate_report`` over requests' results (each turned into a
+    record through ``Timeline.extend`` and ``build_record``)."""
+    from ray_torch.observability import attribution
+
+    records = []
+    for i, out in enumerate(outs):
+        tl = attribution.Timeline(out.get("request_id") or str(i))
+        tl.extend(out.get("stages"))
+        ttft, lat = out.get("ttft_s"), out.get("latency_s")
+        records.append(attribution.build_record(
+            tl, kind="baseline", violated=[], policy={},
+            ttft_ms=None if ttft is None else 1e3 * ttft,
+            e2e_ms=None if lat is None else 1e3 * lat))
+    return attribution.aggregate_report(records)
+
+
+def stage_line(rep, stages=("queue", "restore", "prefill", "decode")) -> str:
+    """Per-stage p50 / p99 ms and the slowest decile's dominant stage."""
+    ms = rep["stage_ms"]
+    return (", ".join(f"{st} {ms[st]['p50']:.1f} / {ms[st]['p99']:.1f}"
+                      for st in stages if st in ms)
+            + f" ms (p50 / p99 of {rep['count']}); the slowest decile's "
+            f"dominant stage {rep['dominant_stage']}")
+
+
 def serve_arm(card: str, graphs: bool, params=None, max_tokens: int = 32):
     """One arm of phase 4: an ``LLMServer`` (over ``params``, else weights
     from seed 0) with CUDA graphs on or off answers four waves of
@@ -868,6 +946,27 @@ def serve_arm(card: str, graphs: bool, params=None, max_tokens: int = 32):
         raise AssertionError(f"prompt programs {sorted(eng._prompt_programs)}"
                              f"; first uses in the warm wave "
                              f"{set(first_ms) - set(before_warm)}")
+    # attribution: every completion's waterfall against its own TTFT and
+    # latency; wave 2's prefix hit cached the full pages it shares with
+    # an earlier prompt
+    tok = eng.tokenizer.encode
+    prompts = [tok(p) for p in wave1 + wave2 + wave3 + wave4]
+    if len(prompts) != len(results):
+        raise AssertionError(f"{len(results)} completions for "
+                             f"{len(prompts)} prompts")
+    for r, p in zip(results, prompts):
+        check_waterfall(f"phase 4 {r['ray_tpu']['request_id']}",
+                        r["ray_tpu"], len(p))
+    hit = prompts[8]
+    shared_pages = max(
+        next((i for i, (a, b) in enumerate(zip(hit, p)) if a != b),
+             min(len(hit), len(p))) for p in prompts[:8]) // cfg.page_size
+    hit_pages = min(shared_pages, (len(hit) - 1) // cfg.page_size)
+    cached = results[8]["ray_tpu"]["stages"][1]["attrs"]["cached_tokens"]
+    if not (hit_pages and cached == hit_pages * cfg.page_size):
+        raise AssertionError(f"wave 2's prefix hit cached {cached} tokens, "
+                             f"its shared pages {hit_pages}")
+    report = stage_report([r["ray_tpu"] for r in results])
     ttfts = [r["ray_tpu"]["ttft_s"] for r in results[:10]]
     warm = [r["ray_tpu"]["ttft_s"] for r in results[-len(wave4):]]
     waits = [r["ray_tpu"]["queue_wait_s"] for r in results[:10]]
@@ -891,7 +990,7 @@ def serve_arm(card: str, graphs: bool, params=None, max_tokens: int = 32):
             "rate_p50": 1 / statistics.median(gaps),
             "wave_tps": out_tokens / walls[0], "wave_s": walls[0],
             "out_tokens": out_tokens, "prof": prof, "stats": stats,
-            "peak": peak}
+            "peak": peak, "stages": report, "hit": (hit_pages, cached)}
 
 
 def phase_serve(card: str):
@@ -941,6 +1040,11 @@ def phase_serve(card: str):
                     a["first_ms"].items())) + f"; warm wave (wave 1's "
             f"lengths, fresh text) TTFT p50 {1e3 * a['warm_p50']:.1f} ms, "
             f"max {1e3 * a['warm_max']:.1f} ms [{card}]")
+        log(f"  graphs {arm:<3}: attribution over all "
+            f"{a['stages']['count']} completions: "
+            + stage_line(a["stages"]) + f"; wave 2's prefix hit cached "
+            f"{a['hit'][1]} tokens = {a['hit'][0]} pages x "
+            f"{a['cfg'].page_size} [{card}]")
         if a["hold"]:
             log(f"  graphs {arm:<3}: one replay on trash inputs, engine "
                 f"idle, host held at the first / median, until the card is "
@@ -1945,9 +2049,9 @@ def tier_arm(card: str, params, codec: str):
                                  f"{len(out['tokens'])} tokens")
         after = eng.engine_stats()
         runs[name] = {"tokens": out["tokens"], "ttft": out["ttft_s"],
-                      "req": req, "delta": {k: after[k] - before[k]
-                                            for k in before
-                                            if isinstance(after[k], int)}}
+                      "req": req, "out": out,
+                      "delta": {k: after[k] - before[k] for k in before
+                                if isinstance(after[k], int)}}
         return runs[name]
 
     try:
@@ -1972,7 +2076,8 @@ def tier_arm(card: str, params, codec: str):
         before = dict(pa.launches)
         made = len(eng._prompt_programs)
         del chunks[:]
-        restored = serve("restored", prompts["A"])
+        with handed_payloads() as handed:
+            restored = serve("restored", prompts["A"])
         launches = {k: pa.launches[k] - before[k] for k in pa.launches}
         suffix = list(chunks)
         made = len(eng._prompt_programs) - made
@@ -2012,11 +2117,58 @@ def tier_arm(card: str, params, codec: str):
         raise AssertionError(f"tier {codec}: restored run launched "
                              f"{launches} (planned {want}); the phase "
                              f"{total} (planned {want_all})")
+    # attribution: no restore stage but in the restored run, whose split
+    # is its request's: the tokens and bytes of 7 pages, the payloads the
+    # store handed out, overlap = restore_ms - loop-blocked ms
+    for name, run in runs.items():
+        prompt = prompts.get(name, prompts["A"])
+        check_waterfall(f"tier {codec} {name}", run["out"],
+                        len(eng.tokenizer.encode(prompt)),
+                        restored=name == "restored")
+    mcfg = cfg.model_config
+    itemsize = torch.empty((), dtype=mcfg.dtype).element_size()
+    page_bytes = (mcfg.n_layers * mcfg.n_kv_heads * cfg.page_size
+                  * mcfg.head_dim * itemsize * 2)
+    r = {s["stage"]: s for s in restored["out"]["stages"]}["restore"]["attrs"]
+    want_r = {"restored_tokens": req.restore_pages * cfg.page_size,
+              "restore_bytes": req.restore_pages * page_bytes,
+              "bytes_wire": sum(handed),
+              "overlap_ms": round(max(0.0, req.restore_ms
+                                      - req.restore_blocked_ms), 3),
+              "partial": False}
+    if {k: r[k] for k in want_r} != want_r or len(handed) != 7 \
+            or not r["bytes_wire"] > 0:
+        raise AssertionError(f"tier {codec}: restore stage {r}, want "
+                             f"{want_r} ({len(handed)} payloads handed out)")
     # restored pages against the spilled ones, bit for bit
     same = all(torch.equal(_bits(g), _bits(w)) for g, w in zip(got, snapshot))
     return {"cfg": cfg, "runs": runs, "launches": launches, "total": total,
             "want": want, "stats": stats, "same": same, "eng": eng,
             "pages": after, "snapshot": snapshot, "suffix": suffix}
+
+
+@contextlib.contextmanager
+def handed_payloads():
+    """The bytes of every page payload the tier store hands a restore
+    stream meanwhile (K's and V's together, from the payloads
+    themselves: an encoded page's data and scale, a raw page's array)."""
+    from ray_torch.serve.llm import kv_tier
+
+    sizes = []
+    fetch = kv_tier.ChainStream._fetch_chunk
+
+    def spy(stream, chunk, blobs):
+        items = fetch(stream, chunk, blobs)
+        for pk, pv, encoded, _ in items:
+            sizes.append(sum(len(p["data"]) + len(p.get("scale") or b"")
+                             if encoded else p.nbytes for p in (pk, pv)))
+        return items
+
+    kv_tier.ChainStream._fetch_chunk = spy
+    try:
+        yield sizes
+    finally:
+        kv_tier.ChainStream._fetch_chunk = fetch
 
 
 def tier_costs(eng, pages, snapshot, reps: int = 5) -> dict:
@@ -2144,6 +2296,19 @@ def tier_tiny(card: str):
     return out
 
 
+def restored_stages(out) -> str:
+    """A restored request's stage ms and its restore split."""
+    by = {s["stage"]: s for s in out["stages"]}
+    r = by["restore"]["attrs"]
+    return (", ".join(f"{n} {1e3 * (s['end'] - s['start']):.1f}"
+                      for n, s in by.items())
+            + f" ms; restore_ms {r['restore_ms']}, decode_ms "
+            f"{r['decode_ms']}, overlap_ms {r['overlap_ms']}, bytes_wire "
+            f"{r['bytes_wire']} of restore_bytes {r['restore_bytes']}, "
+            f"restored_tokens {r['restored_tokens']}, partial "
+            f"{r['partial']}")
+
+
 def phase_tier(card: str):
     """Phase 10: the KV tier at full width (llama3_1b bf16, CUDA graphs on,
     phase 4's weights from seed 0) with the lossless codec and then raw
@@ -2185,6 +2350,8 @@ def phase_tier(card: str):
         f"{req.restore_ms:.1f} (loop-blocked {req.restore_blocked_ms:.1f}, "
         f"codec decode {req.restore_decode_ms:.1f}, {req.restore_bytes} "
         f"bytes) [{card}]")
+    log(f"  restored A's stages: " + restored_stages(runs["restored"]["out"])
+        + f" [{card}]")
     page_mib = kvc.page_raw_nbytes(a["cfg"].model_config,
                                    a["cfg"].page_size) / 2**20
     log(f"  per page ({page_mib:g} MiB of K+V): spill device->host "
@@ -2221,7 +2388,8 @@ def phase_tier(card: str):
         f"{1e3 * cr['restored']['ttft']:.1f} ms; restore_ms "
         f"{creq.restore_ms:.1f} (loop-blocked {creq.restore_blocked_ms:.1f}"
         f"); pages bit-identical {c['same']}, restored tokens == resident "
-        f"{same_none} [{card}]")
+        f"{same_none}; restored A's stages: "
+        + restored_stages(cr["restored"]["out"]) + f" [{card}]")
     if not (c["same"] and same_none):
         raise AssertionError("raw restore: pages or tokens differ")
     tiny = tier_tiny(card)
@@ -2340,6 +2508,42 @@ def deadline_shedding(card: str, cfg, params):
     if not (all(o["error"] is None for o in kept + alone) and all(same)
             and free == base and free2 == base2):
         raise AssertionError("survivors' tokens or free pages differ")
+    # attribution: a shed request waited and was never admitted; the
+    # survivors' waterfalls are whole
+    for o in shed:
+        if stage_names(o) != ["queue"] \
+                or o["stages"][0]["attrs"] != {"admitted": False}:
+            raise AssertionError(f"shed request's stages {o['stages']}")
+    for i, (o, p) in enumerate(zip(kept, survivors)):
+        check_waterfall(f"(a) survivor {i}", o, len(p))
+    log(f"  (a) stages: the 8 shed ['queue'] (admitted False), the 16 "
+        f"survivors queue/prefill/decode: " + stage_line(stage_report(
+            kept), ("queue", "prefill", "decode")) + f" [{card}]")
+
+
+def dropped_stages(name, out, req) -> None:
+    """A request dropped while admitted (mid-chunk or mid-restore): its
+    stages are those ``engine_stages`` gives for its fields — ``queue``
+    (admitted), ``restore`` if pages had landed, and no ``prefill`` or
+    ``decode``."""
+    from ray_torch.observability import attribution
+
+    want = attribution.engine_stages(
+        submitted_wall=req.submitted_wall, submitted_at=req.submitted_at,
+        admitted_at=req.admitted_at, first_token_at=req.first_token_at,
+        finished_at=req.finished_at, cached_tokens=req.cached_tokens,
+        restored_tokens=req.restored_tokens,
+        restore_bytes=req.restore_bytes, restore_ms=req.restore_ms,
+        restore_wire_bytes=req.restore_wire_bytes,
+        restore_decode_ms=req.restore_decode_ms,
+        restore_overlap_ms=req.restore_overlap_ms,
+        restore_partial=req.restore_partial,
+        prompt_tokens=len(req.prompt_tokens),
+        generated_tokens=len(req.generated))
+    names = ["queue"] + (["restore"] if req.restored_tokens else [])
+    if out["stages"] != want or stage_names(out) != names \
+            or out["stages"][0]["attrs"] != {"admitted": True}:
+        raise AssertionError(f"{name}: stages {out['stages']}, want {want}")
 
 
 def drop_mid_chunk(card: str, cfg, params):
@@ -2401,6 +2605,10 @@ def drop_mid_chunk(card: str, cfg, params):
             and again["tokens"] == want["tokens"]):
         raise AssertionError("the next owner of a dropped request's pages "
                              "differs from a fresh engine")
+    dropped_stages("(b) mid-chunk", out, req)
+    log(f"  (b) mid-chunk stages {stage_names(out)}, queue "
+        f"{1e3 * (out['stages'][0]['end'] - out['stages'][0]['start']):.3f}"
+        f" ms [{card}]")
 
 
 def drop_mid_restore(card: str, params):
@@ -2469,6 +2677,12 @@ def drop_mid_restore(card: str, params):
         raise AssertionError(f"A after the drop: {again['error']}, restored "
                              f"{again_req.restore_pages}, tokens == "
                              f"resident {same}")
+    dropped_stages("(b) mid-restore", out, req)
+    check_waterfall("(b) A after the drop", again, len(toks_a),
+                    restored=True)
+    log(f"  (b) mid-restore stages {stage_names(out)} (restored tokens "
+        f"{req.restored_tokens}); A after the drop: "
+        + restored_stages(again) + f" [{card}]")
 
 
 def overload_run(cfg, params, prompts, budget=None) -> dict:
@@ -2561,6 +2775,10 @@ def deadline_overload(card: str, params):
     overload_line("deadline submit + D", runs["submit + D"], budget, card)
     overload_line("deadline submit + 3D/4", runs["submit + 3D/4"],
                   0.75 * budget, card)
+    for name, run in runs.items():
+        log(f"  (c) {name}, stages: " + stage_line(
+            stage_report(run["outs"]), ("queue", "prefill", "decode"))
+            + f" [{card}]")
     for name, run in runs.items():
         errors = [o["error"] for o in run["outs"]]
         if not (all(e in (None, "deadline exceeded") for e in errors)

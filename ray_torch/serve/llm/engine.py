@@ -62,13 +62,19 @@ How the reference's JAX machinery maps onto PyTorch:
   (no slot, no pages, no prefill) and a request whose deadline passes
   mid chunked prefill or mid restore is dropped at the next pass, its
   slot and pages given back (``stats["shed_expired"]`` counts both). A
-  slotted, decoding request is not preempted.
+  slotted, decoding request is not preempted;
+- per-request attribution (``ray_torch.observability.attribution``):
+  ``result`` and ``drain``'s final chunk carry ``request_id``,
+  ``queue_wait_s`` and ``stages``, the request's ``queue`` / ``restore``
+  / ``prefill`` / ``decode`` waterfall built from its stamps and the
+  restore's split (``_attribution_payload``), once a request, on the
+  caller's thread; the loop only stamps.
 
 This slice leaves out, for later slices: the tier's warm start, prefetch
 hints and eager spill of live chains, disaggregation, failover
-continuations, tensor parallelism, and the flight-recorder / tracing /
-attribution hooks. Only the fields of ``_NOT_PORTED`` (tensor parallelism
-and disaggregation) raise when set; the others have no switch in the port.
+continuations, tensor parallelism, and the flight-recorder / tracing
+hooks. Only the fields of ``_NOT_PORTED`` (tensor parallelism and
+disaggregation) raise when set; the others have no switch in the port.
 
 Threading model: one loop thread drives the device. ``submit()`` /
 ``drain()`` / ``result()`` / ``cancel()`` are thread-safe.
@@ -91,6 +97,7 @@ import torch
 from ray_torch._device import resolve_device
 from ray_torch.core import deadline as request_deadline
 from ray_torch.models import llama
+from ray_torch.observability import attribution
 from ray_torch.observability import profiling as profiling_mod
 from ray_torch.ops import _build
 from ray_torch.ops import paged_attention as paged_ops
@@ -166,6 +173,17 @@ class _Request:
     # captured at submit: the admission loop sheds waiting requests whose
     # deadline passed instead of prefilling answers nobody will read
     deadline: Optional[float] = None
+    # attribution (observability/attribution.py): the wall clock at
+    # submit, which maps the monotonic stamps onto the wall; the KV-tier
+    # restore's split — tokens whose KV came back from the tier, encoded
+    # bytes off the store, how much of restore_ms hid under other work
+    # (restore_ms - restore_blocked_ms), and whether the stream ended
+    # short of its plan (the landed pages kept, the tail re-prefilled)
+    submitted_wall: float = field(default_factory=time.time)
+    restored_tokens: int = 0
+    restore_wire_bytes: int = 0
+    restore_overlap_ms: float = 0.0
+    restore_partial: bool = False
 
 
 class _Fetch:
@@ -799,7 +817,10 @@ class LLMEngine:
         out = {"tokens": new, "text": self.tokenizer.decode(new),
                "done": done, "error": err}
         if done:
-            out.update(self._request_meta(req))
+            # the final chunk carries the per-request attribution (queue
+            # wait + engine stage timeline), as result() does; built
+            # outside the lock
+            out.update(self._attribution_payload(req))
         return out
 
     def result(self, request_id: str, timeout: Optional[float] = None) -> dict:
@@ -841,14 +862,38 @@ class LLMEngine:
             "latency_s": (req.finished_at or time.monotonic())
             - req.submitted_at,
         }
-        out.update(self._request_meta(req))
+        out.update(self._attribution_payload(req))
         return out
 
     @staticmethod
-    def _request_meta(req: _Request) -> dict:
-        return {"request_id": req.request_id,
-                "queue_wait_s": ((req.admitted_at - req.submitted_at)
-                                 if req.admitted_at is not None else None)}
+    def _attribution_payload(req: _Request) -> dict:
+        """Per-request critical-path extras: queue wait plus the
+        engine-side stage timeline (``attribution.engine_stages``), in the
+        completion's metadata."""
+        gaps = sorted(req.itl_gaps)
+        queue_wait = ((req.admitted_at - req.submitted_at)
+                      if req.admitted_at is not None else None)
+        return {
+            "request_id": req.request_id,
+            "queue_wait_s": queue_wait,
+            "stages": attribution.engine_stages(
+                submitted_wall=req.submitted_wall,
+                submitted_at=req.submitted_at,
+                admitted_at=req.admitted_at,
+                first_token_at=req.first_token_at,
+                finished_at=req.finished_at,
+                cached_tokens=req.cached_tokens,
+                restored_tokens=req.restored_tokens,
+                restore_bytes=req.restore_bytes,
+                restore_ms=req.restore_ms,
+                restore_wire_bytes=req.restore_wire_bytes,
+                restore_decode_ms=req.restore_decode_ms,
+                restore_overlap_ms=req.restore_overlap_ms,
+                restore_partial=req.restore_partial,
+                prompt_tokens=len(req.prompt_tokens),
+                generated_tokens=len(req.generated),
+                itl_s=gaps[len(gaps) // 2] if gaps else None),
+        }
 
     def generate(self, prompt: str, **kw) -> dict:
         """Convenience: submit + wait."""
@@ -1213,10 +1258,11 @@ class LLMEngine:
             t0 = time.perf_counter()
             injected = 0
             try:
-                pairs, _wire, dec_ms = stream.take(
+                pairs, wire, dec_ms = stream.take(
                     max_pages=self.max_pages_per_seq)
                 if pairs:
                     injected = self._inject_pages(req, pairs)
+                    req.restore_wire_bytes += wire
                     req.restore_decode_ms += dec_ms
             except Exception:  # noqa: BLE001 - degrade to partial/miss
                 logger.warning("kv-tier chunk inject failed; keeping "
@@ -1264,6 +1310,7 @@ class LLMEngine:
         req.restore_pages += t
         req.cached_tokens = (pos0 + t) * ps
         req.prefill_pos = req.cached_tokens
+        req.restored_tokens += t * ps
         req.restore_bytes += int(k_np.nbytes) + int(v_np.nbytes)
         self.stats["restored_pages"] += t
         self.stats["tier_hit_tokens"] += t * ps
@@ -1271,15 +1318,18 @@ class LLMEngine:
 
     def _finalize_restore(self, req: _Request) -> None:
         """Stream over (fully, partially, or not at all): stamp the
-        restore time, count a partial restore, and send the request
+        attribution split, count a partial restore, and send the request
         to its suffix prefill — which starts exactly at the restored
         frontier, so a mid-chain fault costs recompute of the TAIL only."""
         stream = req.restore_stream
         req.restore_stream = None
         req.restore_ms = (time.perf_counter() - req.restore_started) * 1e3
+        req.restore_overlap_ms = max(
+            0.0, req.restore_ms - req.restore_blocked_ms)
         planned = stream.planned or 0
         if 0 < req.restore_pages < planned:
             self.stats["restore_partial"] += 1
+            req.restore_partial = True
         with self._lock:
             if req in self._restoring:
                 self._restoring.remove(req)

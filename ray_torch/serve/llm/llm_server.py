@@ -3,9 +3,14 @@ the in-process part of ``ray_tpu/serve/llm/llm_server.py``.
 
 One server owns one engine. Request and response dicts have the reference
 server's shape (``text_completion`` / ``chat.completion`` objects, ``usage``
-counts, streaming chunks from an async generator). Wrapping it as a serve
+counts, streaming chunks from an async generator). Attribution is ported:
+each response (a stream's final chunk) carries the engine's per-request
+stage waterfall under ``ray_tpu.stages``, and a request id bound with
+``ray_torch.observability.attribution.set_request_id`` in the caller's
+context becomes the engine's request id. Wrapping it as a serve
 deployment (``build_llm_deployment``) waits until the port has its own
-serve layer; continuation (failover) and routing hooks wait with it.
+serve layer; continuation (failover), routing hooks and the SLO exemplar
+shipping wait with it.
 """
 
 from __future__ import annotations
@@ -15,6 +20,7 @@ import time
 import uuid
 from typing import Any
 
+from ray_torch.observability import attribution
 from ray_torch.serve.llm.config import LLMConfig
 from ray_torch.serve.llm.engine import LLMEngine
 
@@ -76,6 +82,12 @@ class LLMServer:
             out["temperature"] = float(payload["temperature"])
         if payload.get("top_k") is not None:
             out["top_k"] = int(payload["top_k"])
+        # a request id bound in the caller's context (an ingress-assigned
+        # X-Request-Id) becomes the engine's, so the stage record and the
+        # client's logs correlate
+        rid = attribution.get_request_id()
+        if rid:
+            out["request_id"] = rid
         return out
 
     def _completion_response(self, out: dict, chat: bool) -> dict:
@@ -103,7 +115,7 @@ class LLMServer:
                         "latency_s": out.get("latency_s"),
                         "queue_wait_s": out.get("queue_wait_s"),
                         "request_id": out.get("request_id"),
-                        "stages": []},
+                        "stages": out.get("stages") or []},
         }
         if out.get("error"):
             resp["error"] = {"message": str(out["error"])}
@@ -158,7 +170,7 @@ class LLMServer:
                                          "queue_wait_s":
                                          d.get("queue_wait_s"),
                                          "request_id": d.get("request_id"),
-                                         "stages": []}}
+                                         "stages": d.get("stages") or []}}
                     if err:
                         final["error"] = {"message": str(err)}
                     yield final
