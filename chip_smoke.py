@@ -142,6 +142,37 @@ Phases, each of which raises on failure (nothing is caught and carried on):
    fields (``queue``, admitted, and ``restore`` if pages had landed; no
    ``decode``); (c) prints each run's per-stage p50 / p99 and the
    dominant stage of its slowest decile;
+12. failover continuations, the journal and spans at full width (after
+   phase 11, before phase 9; llama3_1b at the serve settings, CUDA graphs
+   on, phase 4's weights), on a 750-token prompt (5 full pages and 110
+   tokens of a sixth) x 48 tokens, whose uninterrupted cache-off fp32 run
+   is ``want``: (a) on a fresh cache-off engine (an ``LLMServer``'s),
+   continuations at k = 1, 24, 47 must return want[k:], with
+   ``failover_resumed`` 3 and ``failover_restored_tokens`` 0; the same in
+   bf16 on its own uninterrupted run is reported, not held; (b) with the
+   prefix cache on, the prompt and then its continuation at 24 (want[24:],
+   at least the prompt's 640 full-page tokens restored); (c) with the KV
+   tier on (raw pages, at most 8 cached pages, one page a restore chunk),
+   a live request past 24 tokens: ``spill_inflight`` must spill the full
+   pages its ``request_progress`` implies (within one page), 6, the sixth
+   past the prompt; cancelled and evicted by two fresh prompts, its
+   continuation at 24 restores all 6 from the tier and gives want[24:];
+   evicted again, under the tier's chunk fault it restores 1 (partial)
+   and still gives want[24:]; (d) the journal, through a local sink: one
+   ``failover_resume`` per continuation with its request id and resume
+   length, one ``restore_partial``, each engine's ``mid_traffic_compile``
+   events equal to its ``mid_traffic_compiles`` and none from a warmup,
+   nothing else; (e) with ``tracing_enabled`` in the port's config and a
+   span flusher, the continuations at 1 and 24 submitted inside
+   ``tracing.span("chip_smoke.client")`` give one ``llm.generate`` span
+   each (the client's trace and parent ids, starting at the request's
+   submit wall clock, lasting its ``latency_s`` within 1 ms, its token
+   counts), the one at 47 outside a span none; (f) a server stream with a
+   resume payload as a continuation (``resume_meta`` on its first chunk)
+   and past ``failover_max_resumes`` as a retry that suppresses the first
+   24 tokens: both streams' ``token_ids`` are want[24:]. Prints each
+   continuation's TTFT beside the uninterrupted run's time to its k-th
+   token, the eager spill's ms and the restore's ``restore_ms``;
 9. phase 4b's bf16 wave once more with spec on and off, each with CUDA
    graphs on and off, each under the profiler: device busy share,
    launches, host calls (``cudaLaunchKernel`` and ``cudaGraphLaunch``, each
@@ -153,7 +184,8 @@ Phases, each of which raises on failure (nothing is caught and carried on):
 Prints numbers on earlier lines, then a ``{"kernels": [...]}`` line (each
 row names the CUDA kernel it timed under ``kernel``; ``tier_launches`` is
 its count in phase 10's lossless tier runs, ``deadline_launches`` in phase
-11, its engines' warmups included), then the card's name
+11 and ``failover_launches`` in phase 12, its engines' warmups included),
+then the card's name
 and power limit, and as its last line
 ``{"ok": true, "device": {...}}``. Without a CUDA device it exits non-zero
 and prints no result.
@@ -2833,6 +2865,437 @@ def phase_deadlines(card: str):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 12: failover continuations, the journal and spans at full width
+# ---------------------------------------------------------------------------
+
+FAILOVER_KS = (1, 24, 47)      # resume points: tokens already streamed
+FAILOVER_TOKENS = 48
+
+
+def failover_prompt() -> str:
+    """Phase 12's prompt: 749 fresh letters, 750 tokens with BOS: 5 full
+    pages of 128 and 110 tokens of a sixth, which the first 18 generated
+    tokens fill, so the sixth full page of a continuation at k = 24 lies
+    past the prompt."""
+    rng = np.random.RandomState(17)
+    return "".join(rng.choice(list("abcdefghij klmnopqrst uvwxyz"), 749))
+
+
+def first_tokens_ms(req, k: int) -> float:
+    """ms from submit to a request's ``k``-th token, at host record time."""
+    return 1e3 * (req.first_token_at - req.submitted_at
+                  + sum(req.itl_gaps[:k - 1]))
+
+
+class Journal:
+    """The port's journal (a local sink) and spans (a span flusher), with
+    the events each engine's lifetime added held to its own counts."""
+
+    def __init__(self):
+        from ray_torch.observability import events, tracing
+
+        self.events, self.spans = [], []
+        self._ev, self._tr = events, tracing
+        events.set_local_sink(self.events.append)
+        tracing.register_flusher(self.spans.extend)
+
+    def mark(self) -> int:
+        return len(self.events)
+
+    def kinds(self, since: int = 0, kind=None) -> list:
+        return [e for e in self.events[since:]
+                if kind is None or e["kind"] == kind]
+
+    def check_engine(self, name, eng, since: int, warmed: int) -> int:
+        """The ``mid_traffic_compile`` events since ``since`` (an engine's
+        start) must be its ``mid_traffic_compiles``; none came from its
+        warmup (``warmed``: the mark after ``start()``)."""
+        if warmed != since:
+            raise AssertionError(f"{name}: warmup journaled "
+                                 f"{self.events[since:warmed]}")
+        got = len(self.kinds(since, "mid_traffic_compile"))
+        want = eng.engine_stats()["mid_traffic_compiles"]
+        if got != want:
+            raise AssertionError(f"{name}: {got} mid_traffic_compile events "
+                                 f"against mid_traffic_compiles {want}")
+        return got
+
+    def close(self) -> None:
+        from ray_torch.core import config
+
+        self._tr.flush()
+        self._tr.register_flusher(None)
+        self._ev.clear_local_sink()
+        config.reset_config()
+
+
+def started(journal, make):
+    """``make()`` builds and starts an engine (or a server); returns it and
+    the journal's marks before and after (warmup must journal nothing)."""
+    since = journal.mark()
+    obj = make()
+    return obj, since, journal.mark()
+
+
+def started_engine(cfg, params):
+    """A started ``LLMEngine`` over ``params`` (its warmup run)."""
+    from ray_torch.serve.llm import LLMEngine
+
+    eng = LLMEngine(cfg, params=params, rng_seed=0)
+    eng.start()
+    return eng
+
+
+def failover_want(journal, cfg, params):
+    """The uninterrupted run: a cache-off engine serves the prompt x 48
+    tokens. Returns the tokens, the ms to each resume point's token and
+    the engine's mid-traffic first uses."""
+    eng, since, warmed = started(journal,
+                                 lambda: started_engine(cfg, params))
+    try:
+        rid = eng.submit(failover_prompt(), temperature=0.0)
+        req = eng._requests[rid]
+        out = eng.result(rid, timeout=300.0)
+        mids = journal.check_engine("uninterrupted", eng, since, warmed)
+    finally:
+        eng.shutdown()
+    if out["error"] is not None or len(out["tokens"]) != FAILOVER_TOKENS:
+        raise AssertionError(f"uninterrupted run: {out['error']}, "
+                             f"{len(out['tokens'])} tokens")
+    return (out["tokens"], {k: first_tokens_ms(req, k) for k in FAILOVER_KS},
+            mids)
+
+
+def continuation(eng, want, k, **kw) -> tuple:
+    """A continuation at ``k`` of the phase's prompt through ``submit``
+    and ``result``; (result, request)."""
+    rid = eng.submit(failover_prompt(), resume_tokens=want[:k],
+                     max_tokens=FAILOVER_TOKENS - k, temperature=0.0, **kw)
+    req = eng._requests[rid]
+    return eng.result(rid, timeout=300.0), req
+
+
+def failover_cold(card, journal, cfg, params, want, to_k):
+    """(a) fp32 cold recompute, (e) spans and (f) the server, on one
+    cache-off ``LLMServer``'s engine: continuations at k = 1 and 24
+    submitted inside a client span, 47 outside; then a stream with a
+    resume payload, as a continuation and past ``failover_max_resumes``
+    as a retry. Returns the continuations' results by k."""
+    from ray_torch.core import config
+    from ray_torch.observability import tracing
+    from ray_torch.serve.llm import LLMServer
+
+    config.get_config().tracing_enabled = True
+    srv, since, warmed = started(journal, lambda: LLMServer(
+        cfg, params=params, rng_seed=0))
+    eng, ks = srv.engine, FAILOVER_KS[1]
+    outs, clients = {}, {}
+    try:
+        for k in FAILOVER_KS:
+            if k != FAILOVER_KS[-1]:
+                with tracing.span("chip_smoke.client") as client:
+                    outs[k] = continuation(eng, want, k)
+                clients[k] = client
+            else:
+                outs[k] = continuation(eng, want, k)
+        stats = eng.engine_stats()
+        plans = {}
+        for plan, count in (("continuation", 1),
+                            ("retry", cfg.failover_max_resumes + 1)):
+            async def stream():
+                return [c async for c in srv.completions({
+                    "prompt": failover_prompt(), "temperature": 0.0,
+                    "max_tokens": FAILOVER_TOKENS - ks, "stream": True,
+                    "resume_tokens": want[:ks], "resume_count": count})]
+
+            plans[plan] = asyncio.run(stream())
+        mids = journal.check_engine("(a) cold", eng, since, warmed)
+    finally:
+        srv.shutdown()
+    for k, (out, req) in outs.items():
+        log(f"  (a) fp32 cold continuation at k={k}: tokens == want[k:] "
+            f"{out['tokens'] == want[k:]}, TTFT {1e3 * out['ttft_s']:.1f} ms "
+            f"(the uninterrupted run's time to token {k}: {to_k[k]:.1f} ms), "
+            f"cached_tokens {req.cached_tokens} [{card}]")
+        if out["error"] is not None or out["tokens"] != want[k:]:
+            raise AssertionError(f"cold continuation at {k}: {out['error']}, "
+                                 f"tokens differ from the uninterrupted run")
+    if (stats["failover_resumed"], stats["failover_restored_tokens"]) \
+            != (len(FAILOVER_KS), 0):
+        raise AssertionError(f"cold continuations: {stats}")
+    # (e) one llm.generate span per traced request, none for the other
+    tracing.flush()
+    generated = [s for s in journal.spans if s["name"] == "llm.generate"]
+    for k, (out, req) in outs.items():
+        mine = [s for s in generated
+                if s["attrs"]["request_id"] == req.request_id]
+        if k not in clients:
+            if mine:
+                raise AssertionError(f"untraced request at k={k}: {mine}")
+            continue
+        (s,) = mine
+        c = clients[k]
+        dur = s["end"] - s["start"]
+        if not ((s["trace_id"], s["parent_id"]) == (c["trace_id"],
+                                                    c["span_id"])
+                and s["start"] == req.submitted_wall
+                and abs(dur - out["latency_s"]) <= 1e-3
+                and s["attrs"]["prompt_tokens"] == out["num_prompt_tokens"]
+                and s["attrs"]["generated_tokens"]
+                == out["num_generated_tokens"]):
+            raise AssertionError(f"span at k={k}: {s} against {c} and "
+                                 f"latency {out['latency_s']}")
+        log(f"  (e) span at k={k}: llm.generate under chip_smoke.client "
+            f"(trace {s['trace_id'][:8]}), {1e3 * dur:.3f} ms against "
+            f"latency_s {1e3 * out['latency_s']:.3f} ms, tokens "
+            f"{s['attrs']['prompt_tokens']} + "
+            f"{s['attrs']['generated_tokens']} [{card}]")
+    if len(generated) != len(clients):
+        raise AssertionError(f"{len(generated)} llm.generate spans for "
+                             f"{len(clients)} traced requests")
+    # (f) the server's stream, in both plans
+    for plan, chunks in plans.items():
+        toks = [t for c in chunks[:-1] for t in c["token_ids"]]
+        meta = chunks[0].get("resume_meta")
+        log(f"  (f) server stream, {plan} at k={ks}: token_ids == want[k:] "
+            f"{toks == want[ks:]}, first chunk's resume_meta {meta} [{card}]")
+        if toks != want[ks:] or meta is None \
+                or meta["resumed"] is not (plan == "continuation") \
+                or chunks[-1].get("error"):
+            raise AssertionError(f"server {plan}: {meta}, {chunks[-1]}")
+    return {k: out for k, (out, _) in outs.items()}, mids
+
+
+def failover_local(card, journal, cfg, params, want, to_k):
+    """(b) fp32: on one engine with the prefix cache on, the prompt, then
+    its continuation at k = 24 over the prompt's resident full pages."""
+    k = FAILOVER_KS[1]
+    eng, since, warmed = started(journal,
+                                 lambda: started_engine(cfg, params))
+    try:
+        first = eng.generate(failover_prompt(), temperature=0.0)
+        out, req = continuation(eng, want, k)
+        stats = eng.engine_stats()
+        mids = journal.check_engine("(b) local", eng, since, warmed)
+    finally:
+        eng.shutdown()
+    full = (len(failover_prompt()) + 1) // cfg.page_size * cfg.page_size
+    log(f"  (b) fp32 local-prefix continuation at k={k}: tokens == want[k:] "
+        f"{out['tokens'] == want[k:]}, cached_tokens {req.cached_tokens}, "
+        f"failover_restored_tokens {stats['failover_restored_tokens']} (the "
+        f"prompt's full pages: {full}), TTFT {1e3 * out['ttft_s']:.1f} ms "
+        f"(time to token {k}: {to_k[k]:.1f} ms) [{card}]")
+    if first["tokens"] != want or out["tokens"] != want[k:] \
+            or stats["failover_restored_tokens"] < full \
+            or stats["failover_resumed"] != 1:
+        raise AssertionError(f"local-prefix continuation: {stats}")
+    return out, mids
+
+
+def failover_tier(card, journal, cfg, params, want, to_k):
+    """(c) fp32, the KV tier on, at most 8 cached pages (phase 10's
+    settings, but raw pages: a lossless encode of an fp32 page takes
+    about half a second on the loop; a tier of 2 GiB: the 16 MiB pages
+    of the evictions would push the eager spill out of 256 MiB; one page a
+    restore chunk, so a chunk fault leaves a partial restore), one engine:
+    a live request past 24 generated tokens; ``spill_inflight``
+    must spill the full pages its progress implies (within one page), its
+    sixth page past the prompt; cancelled, then evicted by two other
+    prompts, its continuation at k = 24 restores those 6 pages from the
+    tier. Evicted again, under the tier's chunk fault it restores one
+    page (a partial restore) and re-prefills the rest. Both must give
+    want[24:]."""
+    k, ps = FAILOVER_KS[1], cfg.page_size
+    prompt = failover_prompt()
+    eng, since, warmed = started(journal,
+                                 lambda: started_engine(cfg, params))
+    try:
+        rid = eng.submit(prompt, max_tokens=120, temperature=0.0)
+        if not _wait_for(lambda: len((eng.request_progress(rid) or {}).get(
+                "generated") or ()) >= k):
+            raise AssertionError("the live request made no progress")
+        prog = eng.request_progress(rid)
+        t0 = time.perf_counter()
+        spilled = eng.spill_inflight()
+        spill_ms = 1e3 * (time.perf_counter() - t0)
+        implied = (prog["prompt_tokens"] + len(prog["generated"]) - 1) // ps
+        gen = list(eng.request_progress(rid)["generated"])
+        eng.cancel(rid)
+        _wait_for(lambda: rid not in eng._requests, 60.0)
+        toks = eng.tokenizer.encode(prompt) + want[:k]
+        chain = [d.hex() for d, _ in _chain(eng, toks)]
+
+        def evict(*seeds):
+            for s in seeds:
+                eng.generate(fresh_tokens(np.random.RandomState(s), 1000),
+                             max_tokens=2, temperature=0.0)
+            gone = all(p is None for _, p in _chain(eng, toks))
+            held = all(d in eng._kv_tier._by_digest for d in chain)
+            return gone and held
+
+        evicted = evict(21, 22)
+        out, req = continuation(eng, want, k)
+        evicted2 = evict(23, 24)
+
+        def fault(ci):
+            if ci >= 1:
+                raise RuntimeError("injected chunk fault")
+
+        eng._kv_tier._chunk_fault = fault
+        part, preq = continuation(eng, want, k)
+        eng._kv_tier._chunk_fault = None
+        stats = eng.engine_stats()
+        mids = journal.check_engine("(c) tier", eng, since, warmed)
+    finally:
+        eng.shutdown()
+    prompt_pages = len(eng.tokenizer.encode(prompt)) // ps
+    log(f"  (c) fp32 eager spill at {len(prog['generated'])} generated "
+        f"tokens: spill_inflight() {spilled} pages in {spill_ms:.1f} ms "
+        f"(implied by request_progress: {implied}; the prompt's full pages "
+        f"{prompt_pages}); the live tokens == want {gen[:k] == want[:k]} "
+        f"[{card}]")
+    log(f"  (c) tier-restored continuation at k={k}: restored pages "
+        f"{req.restore_pages} (chain {len(chain)}, past the prompt "
+        f"{req.restore_pages - prompt_pages}), restore_ms "
+        f"{req.restore_ms:.1f}, tokens == want[k:] "
+        f"{out['tokens'] == want[k:]}, TTFT {1e3 * out['ttft_s']:.1f} ms "
+        f"(time to token {k}: {to_k[k]:.1f} ms); under the chunk fault: "
+        f"restored {preq.restore_pages} of {len(chain)}, partial "
+        f"{preq.restore_partial}, tokens == want[k:] "
+        f"{part['tokens'] == want[k:]}, TTFT {1e3 * part['ttft_s']:.1f} ms; "
+        f"failover_restored_tokens {stats['failover_restored_tokens']} "
+        f"[{card}]")
+    if not (abs(spilled - implied) <= 1 and spilled >= len(chain)
+            and len(chain) > prompt_pages and gen[:k] == want[:k]
+            and evicted and evicted2):
+        raise AssertionError(f"eager spill: {spilled} pages, implied "
+                             f"{implied}, chain {len(chain)}, evicted "
+                             f"{evicted}/{evicted2}")
+    if not (out["error"] is None and out["tokens"] == want[k:]
+            and req.restore_pages == len(chain) and not req.restore_partial
+            and part["error"] is None and part["tokens"] == want[k:]
+            and preq.restore_pages == 1 and preq.restore_partial
+            and stats["failover_restored_tokens"]
+            == (len(chain) + 1) * ps and stats["restore_partial"] == 1):
+        raise AssertionError(f"tier continuations: {out['error']}, "
+                             f"{part['error']}, restored "
+                             f"{req.restore_pages}/{preq.restore_pages}, "
+                             f"{stats}")
+    return out, req, mids, [req.request_id, preq.request_id]
+
+
+def failover_bf16(card, journal, cfg, params):
+    """(a) in bf16, reported: a cache-off engine's uninterrupted run and
+    its continuations at each k; how many flip."""
+    eng, since, warmed = started(journal,
+                                 lambda: started_engine(cfg, params))
+    try:
+        want = eng.generate(failover_prompt(), temperature=0.0)["tokens"]
+        outs = {k: continuation(eng, want, k)[0] for k in FAILOVER_KS}
+        mids = journal.check_engine("(a) bf16", eng, since, warmed)
+    finally:
+        eng.shutdown()
+    flips = {k: next((i for i, (a, b) in enumerate(zip(o["tokens"],
+                                                       want[k:]))
+                      if a != b), None) for k, o in outs.items()}
+    log(f"  (a) bf16 continuations (reported, not held): tokens == "
+        f"want[k:] {[outs[k]['tokens'] == want[k:] for k in FAILOVER_KS]} "
+        f"at k={list(FAILOVER_KS)}; first differing position {flips}; TTFT "
+        + ", ".join(f"{1e3 * o['ttft_s']:.1f}" for o in outs.values())
+        + f" ms [{card}]")
+    if any(o["error"] for o in outs.values()):
+        raise AssertionError("bf16 continuation failed")
+    return outs, mids
+
+
+def phase_failover(card: str):
+    """Phase 12: failover continuations, the journal and spans at full
+    width (llama3_1b at the serve settings, CUDA graphs on, phase 4's
+    weights from seed 0): (a) cold continuations (fp32 held, bf16
+    reported), (b) over a local prefix, (c) restored from an eager
+    spill (whole and partial), (d) the journal through a local sink, (e)
+    one span per traced request, (f) the server's resume plans. Returns
+    the phase's launches by kernel, every engine's warmup included."""
+    from ray_torch.models import llama
+    from ray_torch.ops import paged_attention as pa
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    params = llama.init_params(serve_config().model_config, gen, "cuda")
+    fp32 = _cast(params, torch.float32)
+    model32 = llama.llama3_1b(max_seq_len=2048, dtype=torch.float32)
+    off32 = serve_config(max_tokens=FAILOVER_TOKENS, model_config=model32,
+                         prefix_cache_enabled=False)
+    for name in pa.launches:
+        pa.launches[name] = 0
+    journal = Journal()
+    try:
+        t0 = time.perf_counter()
+        want, to_k, m_want = failover_want(journal, off32, fp32)
+        cold, m_a = failover_cold(card, journal, off32, fp32, want, to_k)
+        t1 = time.perf_counter()
+        local, m_b = failover_local(card, journal, serve_config(
+            max_tokens=FAILOVER_TOKENS, model_config=model32), fp32, want,
+            to_k)
+        t2 = time.perf_counter()
+        tier, treq, m_c, tier_rids = failover_tier(
+            card, journal, serve_config(
+                max_tokens=FAILOVER_TOKENS, model_config=model32,
+                kv_tier_enabled=True, kv_tier_codec="none",
+                kv_tier_max_bytes=2 << 30, prefix_cache_max_pages=8,
+                kv_tier_chunk_pages=1),
+            fp32, want, to_k)
+        del fp32
+        torch.cuda.empty_cache()
+        t3 = time.perf_counter()
+        bf16, m_bf = failover_bf16(card, journal, serve_config(
+            max_tokens=FAILOVER_TOKENS, prefix_cache_enabled=False), params)
+        t4 = time.perf_counter()
+    finally:
+        journal.close()
+    launches = dict(pa.launches)
+    # (d) the journal: one failover_resume per continuation (the server's
+    # retry is not one), one restore_partial, each engine's mid-traffic
+    # first uses, nothing else
+    k = FAILOVER_KS[1]
+    resumes = journal.kinds(kind="failover_resume")
+    partial = journal.kinds(kind="restore_partial")
+    mids = journal.kinds(kind="mid_traffic_compile")
+    # fp32 and bf16 cold, the server's continuation, local, tier x 2
+    want_resumes = 2 * len(FAILOVER_KS) + 1 + 1 + 2
+    log(f"  (d) journal: {len(resumes)} failover_resume (want "
+        f"{want_resumes}), {len(partial)} restore_partial "
+        f"{[e['attrs'] for e in partial]}, {len(mids)} mid_traffic_compile "
+        f"(engines' mid_traffic_compiles {[m_want, m_a, m_b, m_c, m_bf]}: "
+        f"{sorted({tuple(e['attrs']['sig']) for e in mids})}), "
+        f"{len(journal.events)} events in all [{card}]")
+    others = [e for e in journal.events if e["kind"] not in (
+        "failover_resume", "restore_partial", "mid_traffic_compile")]
+    if others or len(resumes) != want_resumes \
+            or len(mids) != m_want + m_a + m_b + m_c + m_bf \
+            or any(e["attrs"]["resume_len"] not in FAILOVER_KS
+                   or e["severity"] != "WARNING" for e in resumes) \
+            or [e["request_id"] for e in partial] != tier_rids[1:] \
+            or not all(rid in {e["request_id"] for e in resumes}
+                       for rid in tier_rids):
+        raise AssertionError(f"journal: {others}, {len(resumes)} resumes, "
+                             f"{partial}, {len(mids)} compiles")
+    log(f"  TTFT of a continuation at k={k} (what failover costs a user, "
+        f"against the uninterrupted run's time to its token {k}, "
+        f"{to_k[k]:.1f} ms): cold {1e3 * cold[k]['ttft_s']:.1f} ms, local "
+        f"prefix {1e3 * local['ttft_s']:.1f} ms, tier-restored "
+        f"{1e3 * tier['ttft_s']:.1f} ms (restore_ms {treq.restore_ms:.1f}) "
+        f"[{card}]")
+    log(f"  phase 12 launches (from its first engine's warmup) {launches}; "
+        f"(a, e, f) {t1 - t0:.1f} s, (b) {t2 - t1:.1f} s, (c) "
+        f"{t3 - t2:.1f} s, (a) bf16 {t4 - t3:.1f} s [{card}]")
+    if not all(launches.values()):
+        raise AssertionError(f"phase 12 launched a paged kernel no time: "
+                             f"{launches}")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
@@ -2937,6 +3400,14 @@ def main() -> int:
     for k in kernels:         # the same kernels' counts on phase 11's path
         k["deadline_launches"] = deadline_launches[k["kernel"]]
     log(f"  phase 11: {time.perf_counter() - t0:.1f} s")
+    torch.cuda.empty_cache()
+
+    log("[12] failover continuations, the journal and spans at full width")
+    t0 = time.perf_counter()
+    failover_launches = phase_failover(card)
+    for k in kernels:         # the same kernels' counts on phase 12's path
+        k["failover_launches"] = failover_launches[k["kernel"]]
+    log(f"  phase 12: {time.perf_counter() - t0:.1f} s")
     torch.cuda.empty_cache()
 
     log("[9] where a speculative serving wave's time goes")

@@ -10,8 +10,9 @@
   static signature (prefill bucket, chunk length, decode (width, block)) is
   timed and counted. Eager PyTorch compiles nothing, but a first use still
   pays one-off costs (the kernel library's build and load, cuBLAS
-  heuristics, allocator growth); one that lands while traffic is in flight
-  is flagged ``mid_traffic`` and logged.
+  heuristics, allocator growth, a CUDA graph's capture); one that lands
+  while traffic is in flight is flagged ``mid_traffic``, logged and
+  journaled (a ``mid_traffic_compile`` event, ``observability/events.py``).
 - **Device-memory accounting**: weights / KV-pool byte gauges computed from
   tensor sizes, KV page occupancy, and the CUDA caching allocator's
   live/peak bytes (``None`` on the CPU, never guessed).
@@ -30,6 +31,8 @@ import time
 from typing import Optional
 
 import torch
+
+from ray_torch.observability import events as _fr
 
 logger = logging.getLogger(__name__)
 
@@ -176,6 +179,16 @@ class EngineProfiler:
                 "mid-traffic first use: kind=%s sig=%s took %.2fs — every "
                 "active generation stalled for it (warm this signature at "
                 "startup, see engine warmup_compile)", kind, sig, dt)
+            # a WARNING journal event carrying the signature, as the
+            # reference emits for a mid-traffic compile (with graphs on, a
+            # prompt program's capture at its first use counts). Warmup
+            # (mid_traffic=False) emits nothing.
+            _fr.emit("mid_traffic_compile", "WARNING",
+                     reason=kind,
+                     attrs={"kind": kind,
+                            "sig": list(sig) if isinstance(
+                                sig, (tuple, list)) else [str(sig)],
+                            "seconds": round(float(dt), 4)})
 
     # ---- memory accounting ---------------------------------------------
     def set_memory_layout(self, weights_bytes: int,

@@ -13,9 +13,11 @@ make the engine raise unless they keep their defaults (``_NOT_PORTED`` in
 read by the reference's serve layer (``ray_tpu/serve/proxy.py:263-311``,
 ``ray_tpu/serve/llm/llm_server.py:477-479``), which waits for the port's
 serve layer: the engine accepts them and nothing reads them yet. Nothing
-reads the other fields of unported features either: ``warm_start_*`` (the
-tier's warm start waits for the serve layer) and ``failover_*``. The
-``kv_tier_*`` fields configure the KV tier (``kv_tier.py``).
+reads ``warm_start_*`` either (the tier's warm start waits for the serve
+layer). The ``kv_tier_*`` fields configure the KV tier (``kv_tier.py``);
+``failover_enabled`` gates the engine's continuation submits and
+``failover_max_resumes`` the server's choice between a continuation and a
+retry from scratch (``llm_server._resume_plan``).
 """
 
 from __future__ import annotations
@@ -131,8 +133,10 @@ class LLMConfig:
     warm_start_budget_s: float = 5.0
     warm_start_max_chains: int = 64
 
-    # Mid-stream generation failover — continuation submits are not
-    # ported yet
+    # Mid-stream generation failover: a re-dispatched stream resumes as a
+    # continuation (prompt + already-streamed tokens through the
+    # cache-aware admission path) up to failover_max_resumes times, then
+    # degrades to a retry from scratch with the streamed prefix suppressed
     failover_enabled: bool = True
     failover_max_resumes: int = 2
 

@@ -68,13 +68,29 @@ How the reference's JAX machinery maps onto PyTorch:
   ``queue_wait_s`` and ``stages``, the request's ``queue`` / ``restore``
   / ``prefill`` / ``decode`` waterfall built from its stamps and the
   restore's split (``_attribution_payload``), once a request, on the
-  caller's thread; the loop only stamps.
+  caller's thread; the loop only stamps;
+- the flight recorder (``ray_torch.observability.events``): a
+  ``failover_resume`` event at a continuation's submit, ``restore_partial``
+  when a tier restore stream ends short of its plan, and (from the
+  profiler) ``mid_traffic_compile`` at a signature's first use after
+  traffic started, a prompt graph's capture included;
+- tracing (``ray_torch.observability.tracing``): ``submit`` captures the
+  caller's span carrier (``inject``) and a finished request records one
+  ``llm.generate`` span under it, from its submit wall clock to its end,
+  with its request id and token counts;
+- mid-stream failover continuations: ``submit(resume_tokens=...)`` admits
+  the prompt plus the tokens a dead replica already streamed through the
+  same cache-aware path (local prefix match, tier restore, chunked suffix
+  prefill), and decode resumes at the exact next token;
+  ``request_progress`` is the per-request journal a resume needs;
+  ``spill_inflight`` pushes every live chain's computed full pages into
+  the tier now (drain / SIGTERM), through the loop
+  (``stats["failover_resumed"]`` / ``["failover_restored_tokens"]``).
 
 This slice leaves out, for later slices: the tier's warm start, prefetch
-hints and eager spill of live chains, disaggregation, failover
-continuations, tensor parallelism, and the flight-recorder / tracing
-hooks. Only the fields of ``_NOT_PORTED`` (tensor parallelism and
-disaggregation) raise when set; the others have no switch in the port.
+hints and cluster index, the ingress prefix digests, disaggregation and
+tensor parallelism. Only the fields of ``_NOT_PORTED`` (tensor parallelism
+and disaggregation) raise when set; the others have no switch in the port.
 
 Threading model: one loop thread drives the device. ``submit()`` /
 ``drain()`` / ``result()`` / ``cancel()`` are thread-safe.
@@ -98,7 +114,9 @@ from ray_torch._device import resolve_device
 from ray_torch.core import deadline as request_deadline
 from ray_torch.models import llama
 from ray_torch.observability import attribution
+from ray_torch.observability import events as _fr
 from ray_torch.observability import profiling as profiling_mod
+from ray_torch.observability import tracing
 from ray_torch.ops import _build
 from ray_torch.ops import paged_attention as paged_ops
 from ray_torch.serve.llm import kv_cache as kvc
@@ -184,6 +202,15 @@ class _Request:
     restore_wire_bytes: int = 0
     restore_overlap_ms: float = 0.0
     restore_partial: bool = False
+    # tracing: the caller's span carrier captured at submit (the engine
+    # loop thread has no ambient span context); None when not traced
+    trace_ctx: Optional[dict] = None
+    # mid-stream failover: number of already-generated tokens from a dead
+    # replica appended to prompt_tokens as a continuation. 0 = ordinary
+    # request. Admission is unchanged — the continuation rides the same
+    # prefix-match / tier-restore / chunked suffix prefill path, and
+    # decode resumes at the exact next token
+    resume_len: int = 0
 
 
 class _Fetch:
@@ -415,6 +442,7 @@ class LLMEngine:
                       "tier_hit_tokens": 0, "restore_partial": 0,
                       "spec_rounds": 0, "spec_drafted_tokens": 0,
                       "spec_accepted_tokens": 0,
+                      "failover_resumed": 0, "failover_restored_tokens": 0,
                       # decode blocks / verify rounds / prefill chunks
                       # dispatched, each running the resolved attention
                       # backend per layer
@@ -442,6 +470,10 @@ class LLMEngine:
                 codec=cfg.kv_tier_codec,
                 dtype="bfloat16" if kv_dtype == torch.bfloat16 else None)
             self.allocator.spill_hook = self._spill_capture
+        # drain-time eager spill handshake: spill_inflight() parks one
+        # (done_event, result_box) here and the loop performs the gather
+        # and the hand-off to the store — one thread drives the device
+        self._spill_req: Optional[tuple] = None
         # Speculative decoding (spec_decode.py + _verify_round): host-side
         # n-gram drafts verified k at a time in one dispatch. Greedy-only
         # guarantee: non-greedy slots are never drafted and ride the normal
@@ -740,13 +772,38 @@ class LLMEngine:
                max_tokens: Optional[int] = None,
                temperature: Optional[float] = None,
                top_k: Optional[int] = None,
-               request_id: Optional[str] = None) -> str:
-        """Enqueue a request; returns its id. Tokens stream via drain()."""
+               request_id: Optional[str] = None,
+               resume_tokens: Optional[list] = None) -> str:
+        """Enqueue a request; returns its id. Tokens stream via drain().
+
+        ``resume_tokens`` is a mid-stream failover continuation: the token
+        ids a dead replica already generated for this request. They extend
+        the admission sequence past the prompt — the cache-aware admission
+        path (local prefix match, tier restore, suffix-only chunked
+        prefill) then recovers or recomputes the dead replica's KV and
+        decode resumes at the exact next token; drain() emits ONLY
+        post-resume tokens. ``max_tokens`` for a continuation is the
+        REMAINING budget (original minus the tokens already emitted)."""
         if isinstance(prompt, str):
             toks = self.tokenizer.encode(prompt)
         else:
             toks = list(prompt)
+        # the prompt cap applies BEFORE the continuation is appended: the
+        # original leg was capped the same way, so the digest chain over
+        # the prompt pages is identical across legs
         toks = toks[: self.cfg.max_prompt_len]
+        resume_len = 0
+        if resume_tokens:
+            if not self.cfg.failover_enabled:
+                raise ValueError(
+                    "continuation submit with failover_enabled=False")
+            # leave >=1 position of generation room: a continuation that
+            # would fill max_seq_len exactly still has to sample the next
+            # token to make progress
+            resume = list(resume_tokens)[: max(
+                0, self.cfg.max_seq_len - 1 - len(toks))]
+            resume_len = len(resume)
+            toks = toks + [int(t) for t in resume]
         req = _Request(
             request_id=request_id or uuid.uuid4().hex[:16],
             prompt_tokens=toks,
@@ -756,7 +813,9 @@ class LLMEngine:
                          else temperature),
             top_k=self.cfg.top_k if top_k is None else top_k,
             stop_token=getattr(self.tokenizer, "eos_token_id", None),
-            deadline=request_deadline.current())
+            deadline=request_deadline.current(),
+            trace_ctx=tracing.inject(),
+            resume_len=resume_len)
         if req.top_k != self.cfg.top_k:
             # all sampling uses the ENGINE's top_k, as in the reference
             logger.warning(
@@ -766,6 +825,15 @@ class LLMEngine:
             self._requests[req.request_id] = req
             self._waiting.append(req)
             self.stats["requests"] += 1
+            if resume_len:
+                self.stats["failover_resumed"] += 1
+        if resume_len:
+            # a failed replica's stream is being spliced onto this one:
+            # journal it under the same request id
+            _fr.emit("failover_resume", "WARNING",
+                     request_id=req.request_id,
+                     attrs={"resume_len": int(resume_len),
+                            "model": str(self.cfg.model_id)})
         self._wake.set()
         return req.request_id
 
@@ -900,6 +968,24 @@ class LLMEngine:
         rid = self.submit(prompt, **kw)
         return self.result(rid)
 
+    def request_progress(self, request_id: str) -> Optional[dict]:
+        """Per-request failover journal: the progress a resume needs —
+        accepted token ids, how much of a continuation's prior work was
+        recovered from cache or tier, and the restore cost. None for an
+        unknown (or already collected) request."""
+        with self._lock:
+            req = self._requests.get(request_id)
+            if req is None:
+                return None
+            return {"prompt_tokens": len(req.prompt_tokens),
+                    "generated": list(req.generated),
+                    "resume_len": req.resume_len,
+                    "cached_tokens": req.cached_tokens,
+                    "restored_tokens": req.restored_tokens,
+                    "restore_bytes": req.restore_bytes,
+                    "restore_ms": req.restore_ms,
+                    "admitted": req.admitted_at is not None}
+
     def engine_stats(self) -> dict:
         with self._lock:
             active = sum(1 for r in self.slot_req if r is not None)
@@ -988,6 +1074,17 @@ class LLMEngine:
             # _prefilling in time for THIS pass
             restored = self._restore_steps() if self._kv_tier_on else 0
             chunks = self._prefill_chunks()
+            if self._spill_req is not None:
+                # drain-time eager spill: gather and hand to the store on
+                # THIS thread, then release the waiter — its return must
+                # mean the chains are actually in the tier
+                ev, box = self._spill_req
+                self._spill_req = None
+                try:
+                    box.append(self._spill_inflight_now())
+                    self._kv_tier_flush(wait=True)
+                finally:
+                    ev.set()
             # chunk dispatches count as progress: an otherwise-idle engine
             # mid-chunked-prefill must not sleep between chunks. Restore
             # progress counts too; a stream WAITING on fetches does not —
@@ -1114,6 +1211,11 @@ class LLMEngine:
                     self._restoring.append(req)
                 admitted += 1
                 continue
+            if req.resume_len:
+                # tokens of the dead replica's work recovered WITHOUT
+                # recompute (local prefix pages; the tier-restore route
+                # accounts its share when its stream finalizes)
+                self.stats["failover_restored_tokens"] += req.cached_tokens
             self._route_admitted(req)
             admitted += 1
 
@@ -1187,6 +1289,64 @@ class LLMEngine:
             except Exception:  # noqa: BLE001 - spill is best-effort
                 logger.warning("kv-tier spill put failed; chain evicted "
                                "without spilling", exc_info=True)
+
+    def spill_inflight(self, timeout_s: float = 5.0) -> int:
+        """Eagerly spill the computed full KV pages of every LIVE chain into
+        the tier (the drain / SIGTERM path). Ordinary spill waits for pool
+        eviction; a draining or dying replica's in-flight requests would
+        take their KV with them — this pushes the chains out NOW so that a
+        continuation can restore instead of recomputing. Thread-safe: the
+        gather runs on the engine loop through a handshake (one thread
+        drives the device), or directly when the loop is not running.
+        Returns the pages spilled (0 with the tier off)."""
+        if not self._kv_tier_on:
+            return 0
+        loop = self._loop_thread
+        if loop is None or not loop.is_alive():
+            n = self._spill_inflight_now()
+            self._kv_tier_flush(wait=True)
+            return n
+        ev = threading.Event()
+        box: list = []
+        self._spill_req = (ev, box)
+        self._wake.set()
+        ev.wait(timeout_s)
+        return box[0] if box else 0
+
+    def _spill_inflight_now(self) -> int:
+        """Capture spill gathers for every live request's full pages
+        (slotted, mid chunked prefill or mid restore). Loop thread only
+        (or the caller's, when the loop is down) — the same thread frees
+        pages, so the entries cannot go stale under us."""
+        if self._kv_tier is None:
+            return 0
+        ps = self.cfg.page_size
+        ents: list = []
+        with self._lock:
+            live = [r for r in self.slot_req if r is not None and not r.done]
+            live += [r for r in self._prefilling
+                     if not r.prefill_cancelled and not r.done]
+            # mid-restore requests hold pages too; their injected frontier
+            # is prefill_pos, as for a chunked prefill
+            live += [r for r in self._restoring
+                     if not r.prefill_cancelled and not r.done]
+            for req in live:
+                toks = req.prompt_tokens + req.generated
+                if req.dispatched > 0:
+                    # armed slot: prompt KV fully written; a generated
+                    # token's KV is written when it feeds the NEXT step,
+                    # so the newest recorded token may not be cached yet
+                    covered = len(req.prompt_tokens) + max(
+                        0, len(req.generated) - 1)
+                else:
+                    covered = req.prefill_pos   # mid chunked prefill
+                limit = min(covered // ps, len(req.pages))
+                ents += [(req.pages[i], bytes.fromhex(d), i) for i, d in
+                         enumerate(self._chain_digests(toks, limit))]
+        if not ents:
+            return 0
+        self._spill_capture(ents)
+        return len(ents)
 
     def _chain_digests(self, toks, limit: int) -> list[str]:
         """Hex chain digests of the first ``limit`` full pages of
@@ -1330,6 +1490,14 @@ class LLMEngine:
         if 0 < req.restore_pages < planned:
             self.stats["restore_partial"] += 1
             req.restore_partial = True
+            _fr.emit("restore_partial", "WARNING",
+                     request_id=req.request_id,
+                     attrs={"restored_pages": int(req.restore_pages),
+                            "planned_pages": int(planned)})
+        if req.resume_len:
+            # the continuation's recovered-without-recompute accounting,
+            # deferred from _admit until the restored frontier is final
+            self.stats["failover_restored_tokens"] += req.cached_tokens
         with self._lock:
             if req in self._restoring:
                 self._restoring.remove(req)
@@ -1804,12 +1972,25 @@ class LLMEngine:
 
     def _finish_requests(self, finished: list[_Request]) -> None:
         """Completion tail shared by decode and verify harvests: free pages,
-        release waiters, reap abandoned."""
+        release waiters, record trace spans, reap abandoned."""
         for req in finished:
             self.allocator.free(req.pages)
             req.pages = []
         for req in finished:
             req.done_event.set()
+            if req.trace_ctx:
+                # the span ends where the request finished, on the wall
+                # clock of its submit stamp (as the attribution stages
+                # do): its duration is the completion's latency_s, free
+                # of the time this tail takes to reach it
+                end = req.submitted_wall + (
+                    (req.finished_at or time.monotonic()) - req.submitted_at)
+                tracing.record_span(
+                    "llm.generate", req.submitted_wall, end,
+                    parent=req.trace_ctx, kind="llm",
+                    attrs={"request_id": req.request_id,
+                           "prompt_tokens": len(req.prompt_tokens),
+                           "generated_tokens": len(req.generated)})
             if req.abandoned:
                 with self._lock:
                     self._requests.pop(req.request_id, None)

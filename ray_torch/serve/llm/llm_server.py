@@ -7,22 +7,48 @@ counts, streaming chunks from an async generator). Attribution is ported:
 each response (a stream's final chunk) carries the engine's per-request
 stage waterfall under ``ray_tpu.stages``, and a request id bound with
 ``ray_torch.observability.attribution.set_request_id`` in the caller's
-context becomes the engine's request id. Wrapping it as a serve
-deployment (``build_llm_deployment``) waits until the port has its own
-serve layer; continuation (failover), routing hooks and the SLO exemplar
+context becomes the engine's request id. Mid-stream failover is ported
+on the replica's side: a streamed completion whose payload carries
+``resume_tokens`` (the ids already streamed to the client) and
+``resume_count`` resumes as a continuation (``_resume_plan``), its first
+chunk carrying ``resume_meta``; ``eager_spill`` (also run on SIGTERM,
+where the server was built on the main thread) pushes live chains into
+the KV tier. Wrapping it as a serve deployment (``build_llm_deployment``)
+waits until the port has its own serve layer; the proxy that splices a
+dead replica's stream onto a new one, routing hooks and the SLO exemplar
 shipping wait with it.
 """
 
 from __future__ import annotations
 
 import asyncio
+import os
+import signal
 import time
 import uuid
+import weakref
 from typing import Any
 
 from ray_torch.observability import attribution
 from ray_torch.serve.llm.config import LLMConfig
 from ray_torch.serve.llm.engine import LLMEngine
+
+
+def _resume_plan(resume_tokens, resume_count, cfg: LLMConfig):
+    """Decide how a re-dispatched stream resumes: ``(use_continuation,
+    skip)``. A continuation admits prompt+resume through the cache-aware
+    path and emits only new tokens. Past ``failover_max_resumes`` (or with
+    failover off) the request degrades to a plain retry from scratch:
+    regenerate everything and suppress the first ``skip`` tokens, so the
+    spliced client stream still carries no duplicates (greedy regenerates
+    the identical prefix)."""
+    n = len(resume_tokens or ())
+    if not n:
+        return False, 0
+    if cfg.failover_enabled and int(resume_count or 0) <= \
+            cfg.failover_max_resumes:
+        return True, 0
+    return False, n
 
 
 def _chat_prompt(messages: list[dict]) -> str:
@@ -44,6 +70,37 @@ class LLMServer:
         self.cfg = llm_config
         self.engine = LLMEngine(llm_config, params=params, rng_seed=rng_seed)
         self.engine.start()
+        self._hook_sigterm()
+
+    def _hook_sigterm(self) -> None:
+        """Eager in-flight spill on SIGTERM: a graceful kill pushes every
+        live chain's computed pages into the KV tier before the process
+        dies, so a continuation restores instead of re-prefilling. The
+        previous handler runs after; where there was none, the default
+        action (termination) is restored and the signal raised again, so
+        the process still dies. Best-effort: off the main thread
+        ``signal.signal`` raises ValueError and nothing is installed. The
+        handler holds the server weakly, so a server dropped by its owner
+        (and its engine's device memory) is not kept alive by it."""
+        ref = weakref.ref(self)
+        try:
+            prev = signal.getsignal(signal.SIGTERM)
+
+            def _on_term(signum, frame):
+                try:
+                    srv = ref()
+                    if srv is not None:
+                        srv.eager_spill()
+                finally:
+                    if callable(prev):
+                        prev(signum, frame)
+                    elif prev in (signal.SIG_DFL, None):
+                        signal.signal(signum, signal.SIG_DFL)
+                        os.kill(os.getpid(), signum)
+
+            signal.signal(signal.SIGTERM, _on_term)
+        except (ValueError, OSError, RuntimeError):
+            pass
 
     def shutdown(self) -> None:
         self.engine.shutdown()
@@ -55,7 +112,8 @@ class LLMServer:
             prompt = prompt[0] if prompt else ""
         params = self._sampling(payload)
         if payload.get("stream"):
-            return self._stream_completion(prompt, params, chat=False)
+            return self._stream_completion(prompt, params, chat=False,
+                                           resume=self._resume_spec(payload))
         out = self.engine.generate(prompt, **params)
         return self._completion_response(out, chat=False)
 
@@ -63,7 +121,8 @@ class LLMServer:
         prompt = _chat_prompt(payload.get("messages", []))
         params = self._sampling(payload)
         if payload.get("stream"):
-            return self._stream_completion(prompt, params, chat=True)
+            return self._stream_completion(prompt, params, chat=True,
+                                           resume=self._resume_spec(payload))
         out = self.engine.generate(prompt, **params)
         return self._completion_response(out, chat=True)
 
@@ -89,6 +148,16 @@ class LLMServer:
         if rid:
             out["request_id"] = rid
         return out
+
+    @staticmethod
+    def _resume_spec(payload: dict):
+        """Continuation spec of a re-dispatched stream: the token ids
+        already streamed to the client and how many resumes this request
+        has used. None for an ordinary first-leg request."""
+        toks = payload.get("resume_tokens")
+        if not toks:
+            return None
+        return ([int(t) for t in toks], int(payload.get("resume_count", 1)))
 
     def _completion_response(self, out: dict, chat: bool) -> dict:
         oid = f"cmpl-{uuid.uuid4().hex[:24]}"
@@ -122,18 +191,41 @@ class LLMServer:
         return resp
 
     async def _stream_completion(self, prompt: str, params: dict,
-                                 chat: bool):
+                                 chat: bool, resume=None):
         """Async generator of OpenAI stream chunks (SSE payloads minus
         framing). The poll sleep yields the event loop, so N streaming
-        requests drain concurrently."""
+        requests drain concurrently.
+
+        ``resume`` is a continuation spec ``(token_ids, resume_count)``:
+        within the resume cap the request is admitted as prompt+tokens
+        through the cache-aware path and emits only post-resume tokens;
+        past the cap it degrades to a plain retry from scratch with the
+        already-streamed prefix suppressed. Every delta chunk carries
+        ``token_ids``, and the first chunk of a resumed leg carries
+        ``resume_meta``, its restore accounting."""
         t0 = time.monotonic()
         n_prompt = len(self.engine.tokenizer.encode(prompt)) \
             if isinstance(prompt, str) else len(prompt)
-        rid = self.engine.submit(prompt, **params)
+        resume_tokens, resume_count = resume if resume else ([], 0)
+        use_resume, skip = _resume_plan(resume_tokens, resume_count, self.cfg)
+        if use_resume:
+            rid = self.engine.submit(prompt, resume_tokens=resume_tokens,
+                                     **params)
+        elif skip:
+            # retry from scratch: the caller sent the REMAINING budget, so
+            # restore the original cap — the suppressed regenerated prefix
+            # must not eat into the tokens still owed to the client
+            p2 = dict(params)
+            if p2.get("max_tokens") is not None:
+                p2["max_tokens"] = int(p2["max_tokens"]) + skip
+            rid = self.engine.submit(prompt, **p2)
+        else:
+            rid = self.engine.submit(prompt, **params)
         oid = f"cmpl-{uuid.uuid4().hex[:24]}"
         obj = "chat.completion.chunk" if chat else "text_completion"
         ntok = 0
         ttft = None
+        resume_meta_due = resume is not None
         try:
             while True:
                 d = self.engine.drain(rid)
@@ -141,6 +233,11 @@ class LLMServer:
                 # decode a batch to "" and the chunk must still go out
                 toks = list(d.get("tokens") or ())
                 text = d.get("text", "")
+                if toks and skip:
+                    drop = min(skip, len(toks))
+                    skip -= drop
+                    toks = toks[drop:]
+                    text = self.engine.tokenizer.decode(toks) if toks else ""
                 if toks:
                     if ttft is None:
                         ttft = time.monotonic() - t0
@@ -151,9 +248,19 @@ class LLMServer:
                     else:
                         delta = {"text": text, "index": 0,
                                  "finish_reason": None}
-                    yield {"id": oid, "object": obj,
-                           "model": self.cfg.model_id, "choices": [delta],
-                           "token_ids": toks}
+                    chunk = {"id": oid, "object": obj,
+                             "model": self.cfg.model_id, "choices": [delta],
+                             "token_ids": toks}
+                    if resume_meta_due:
+                        resume_meta_due = False
+                        prog = self.engine.request_progress(rid) or {}
+                        chunk["resume_meta"] = {
+                            "resumed": use_resume,
+                            "restored_tokens": prog.get("restored_tokens", 0),
+                            "restore_bytes": prog.get("restore_bytes", 0),
+                            "restore_ms": prog.get("restore_ms", 0.0),
+                            "cached_tokens": prog.get("cached_tokens", 0)}
+                    yield chunk
                 if d["done"]:
                     err = d.get("error")
                     reason = "error" if err else "stop"
@@ -193,6 +300,13 @@ class LLMServer:
 
     def engine_stats(self) -> dict:
         return self.engine.engine_stats()
+
+    def eager_spill(self) -> dict:
+        """Drain / SIGTERM hook: spill every in-flight chain's computed
+        pages into the KV tier NOW, so continuations restore this
+        replica's work instead of recomputing it. 0 pages when the tier is
+        off."""
+        return {"spilled_pages": self.engine.spill_inflight()}
 
     def check_health(self) -> bool:
         return self.engine._loop_thread is not None \
